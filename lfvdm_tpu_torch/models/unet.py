@@ -1,0 +1,262 @@
+"""Frame-indexed video U-Net (counterpart of lfvdm_tpu/models/unet.py).
+
+A 2-D U-Net applied per frame with factorized spatio-temporal attention, an
+obs-indicator input channel, frame-index conditioned RPE temporal attention
+and two-group attention masking. Activations are NCHW over (B·T) frames in
+the compute dtype; GroupNorm and softmax reduce in f32, and the output head
+runs in f32 (a bf16 head quantizes away the x0 signal in the early sampler
+steps).
+
+Module names follow the reference checkpoint (``time_embed.0/2``,
+``input_blocks.{i}``, ``middle_block``, ``output_blocks.{j}``, ``out.0/2``,
+``in_layers``/``emb_layers``/``out_layers``/``skip_connection``, ...), so
+``lfvdm_tpu.utils.torch_convert.convert_unet_state_dict`` maps this model's
+``state_dict`` into the JAX parameter tree and ``utils/convert.py`` maps it
+back. The JAX package's TPU-only rewrites (split up path, dilated upsample
+conv, remat policies, fused skip conv) are not ported: this module runs the
+plain forms they equal (concat + conv, nearest + conv).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .nn import Conv2d, GroupNorm32, Linear, timestep_embedding
+from .rpe import RPEAttention
+
+
+class ResBlock(nn.Module):
+    """Residual block with timestep-embedding conditioning."""
+
+    def __init__(self, channels: int, emb_channels: int, out_channels: int, *,
+                 dropout: float = 0.0, use_scale_shift_norm: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.use_scale_shift_norm = use_scale_shift_norm
+        self.in_layers = nn.Sequential(
+            GroupNorm32(channels), nn.SiLU(),
+            Conv2d(channels, out_channels, 3, padding=1, dtype=dtype))
+        self.emb_layers = nn.Sequential(
+            nn.SiLU(),
+            Linear(emb_channels, 2 * out_channels if use_scale_shift_norm else out_channels,
+                   dtype=dtype))
+        self.out_layers = nn.Sequential(
+            GroupNorm32(out_channels), nn.SiLU(), nn.Dropout(dropout),
+            Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype, zero=True))
+        if out_channels != channels:
+            self.skip_connection = Conv2d(channels, out_channels, 1, dtype=dtype)
+        else:
+            self.skip_connection = nn.Identity()
+
+    def forward(self, x, emb):
+        h = self.in_layers(x)
+        emb_out = self.emb_layers(emb)[:, :, None, None]
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = self.out_layers[0](h) * (1 + scale) + shift
+            h = self.out_layers[1:](h)
+        else:
+            h = self.out_layers(h + emb_out)
+        return self.skip_connection(x) + h
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv."""
+
+    def __init__(self, channels: int, *, dtype=torch.float32):
+        super().__init__()
+        self.op = Conv2d(channels, channels, 3, stride=2, padding=1, dtype=dtype)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour 2x upsample + 3x3 conv."""
+
+    def __init__(self, channels: int, *, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+class FactorizedAttentionBlock(nn.Module):
+    """Temporal (RPE, masked) then spatial attention over (B·T, C, H, W)."""
+
+    def __init__(self, channels: int, num_heads: int, use_rpe_net: bool, time_embed_dim: int, *,
+                 dtype=torch.float32):
+        super().__init__()
+        self.temporal_attention = RPEAttention(
+            channels, num_heads, use_rpe_net=use_rpe_net, time_embed_dim=time_embed_dim,
+            dtype=dtype)
+        self.spatial_attention = RPEAttention(
+            channels, num_heads, use_rpe_q=False, use_rpe_k=False, use_rpe_v=False,
+            dtype=dtype)
+
+    def forward(self, x, temb, frame_indices, attn_mask, *, T: int,
+                return_attn: bool = False, impl: str = "auto"):
+        BT, C, Hs, Ws = x.shape
+        B = BT // T
+        # Temporal: tokens = frames, batched over pixel sites.
+        xt = x.reshape(B, T, C, Hs * Ws).permute(0, 3, 1, 2)  # (B, HW, T, C)
+        xt, attn_t = self.temporal_attention(
+            xt, temb=temb, frame_indices=frame_indices, attn_mask=attn_mask,
+            return_attn=return_attn, impl=impl)
+        # Spatial: tokens = pixels, batched over frames. No RPE, no mask.
+        xs, attn_s = self.spatial_attention(
+            xt.transpose(1, 2), return_attn=return_attn, impl=impl)  # (B, T, HW, C)
+        out = xs.permute(0, 1, 3, 2).reshape(BT, C, Hs, Ws)
+        attns = None
+        if return_attn:
+            # Per layer (B, T, T) and (B, HW, HW): |mean over heads and sites|.
+            attns = {"temporal": attn_t.mean(dim=(1, 2)).abs(),
+                     "spatial": attn_s.mean(dim=(1, 2)).abs()}
+        return out, attns
+
+
+class _Blocks(nn.ModuleList):
+    """A sequence of U-Net layers; each is called with what it needs."""
+
+    def forward(self, h, emb, attn_args):
+        attns = []
+        for layer in self:
+            if isinstance(layer, ResBlock):
+                h = layer(h, emb)
+            elif isinstance(layer, FactorizedAttentionBlock):
+                h, a = layer(h, *attn_args[0], **attn_args[1])
+                attns.append(a)
+            else:
+                h = layer(h)
+        return h, attns
+
+
+class UNetVideoModel(nn.Module):
+    """The full video U-Net.
+
+    ``forward(x, timesteps, *, x0, frame_indices, obs_mask, latent_mask)``:
+      x:             (B, T, C, H, W) noisy frames (f32)
+      timesteps:     (B,) or (B, T) diffusion steps (may be fractional)
+      x0:            (B, T, C, H, W) clean frames (observed content)
+      frame_indices: (B, T) int — absolute frame positions in the video
+      obs_mask:      (B, T, 1, 1, 1) — 1 where the frame is observed
+      latent_mask:   (B, T, 1, 1, 1) — 1 where the frame is being generated
+    Returns (out, attns): out (B, T, out_C, H, W) f32; attns is None unless
+    ``return_attn_weights``. ``impl="plain"`` runs the attention kernels'
+    plain versions (for comparisons on the card).
+    """
+
+    def __init__(self, in_channels: int, model_channels: int, out_channels: int,
+                 num_res_blocks: int, attention_resolutions: Sequence[int], *,
+                 dropout: float = 0.0, channel_mult: Tuple[int, ...] = (1, 2, 4, 8),
+                 num_heads: int = 1, num_heads_upsample: int = -1,
+                 use_scale_shift_norm: bool = False, use_rpe_net: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.model_channels, self.dtype = model_channels, dtype
+        self.num_res_blocks, self.channel_mult = num_res_blocks, tuple(channel_mult)
+        self.attention_resolutions = tuple(attention_resolutions)
+        heads_up = num_heads if num_heads_upsample == -1 else num_heads_upsample
+        ted = model_channels * 4
+
+        def res(ch_in, ch_out):
+            return ResBlock(ch_in, ted, ch_out, dropout=dropout,
+                            use_scale_shift_norm=use_scale_shift_norm, dtype=dtype)
+
+        def attn(ch, heads):
+            return FactorizedAttentionBlock(ch, heads, use_rpe_net, ted, dtype=dtype)
+
+        self.time_embed = nn.Sequential(
+            Linear(model_channels, ted, dtype=dtype), nn.SiLU(), Linear(ted, ted, dtype=dtype))
+
+        self.input_blocks = nn.ModuleList(
+            [_Blocks([Conv2d(in_channels + 1, model_channels, 3, padding=1, dtype=dtype)])])
+        ch = model_channels
+        skip_chs = [ch]
+        ds = 1
+        for level, mult in enumerate(self.channel_mult):
+            for _ in range(num_res_blocks):
+                layers = [res(ch, mult * model_channels)]
+                ch = mult * model_channels
+                if ds in self.attention_resolutions:
+                    layers.append(attn(ch, num_heads))
+                self.input_blocks.append(_Blocks(layers))
+                skip_chs.append(ch)
+            if level != len(self.channel_mult) - 1:
+                self.input_blocks.append(_Blocks([Downsample(ch, dtype=dtype)]))
+                skip_chs.append(ch)
+                ds *= 2
+
+        self.middle_block = _Blocks([res(ch, ch), attn(ch, num_heads), res(ch, ch)])
+
+        self.output_blocks = nn.ModuleList()
+        for level, mult in reversed(list(enumerate(self.channel_mult))):
+            for i in range(num_res_blocks + 1):
+                layers = [res(ch + skip_chs.pop(), model_channels * mult)]
+                ch = model_channels * mult
+                if ds in self.attention_resolutions:
+                    layers.append(attn(ch, heads_up))
+                if level and i == num_res_blocks:
+                    layers.append(Upsample(ch, dtype=dtype))
+                    ds //= 2
+                self.output_blocks.append(_Blocks(layers))
+
+        self.out = nn.Sequential(
+            GroupNorm32(ch, out_dtype=torch.float32), nn.SiLU(),
+            Conv2d(ch, out_channels, 3, padding=1, dtype=torch.float32, zero=True))
+
+    def forward(self, x, timesteps, *, x0, frame_indices, obs_mask, latent_mask,
+                return_attn_weights: bool = False, impl: str = "auto"):
+        B, T, C, Hs, Ws = x.shape
+        if timesteps.ndim == 1:
+            timesteps = timesteps[:, None].expand(B, T)
+        attn_mask = (obs_mask + latent_mask).clamp(0, 1).reshape(B, T)
+
+        # Observed frames bypass noising; an indicator channel marks them.
+        obs = obs_mask.to(x.dtype)
+        indicator = torch.ones_like(x[:, :, :1]) * obs
+        if os.environ.get("LFVDM_BREAK_OBS_INDICATOR", "0") == "1":
+            # DIAGNOSTIC ONLY: the network can no longer tell observed
+            # frames from latents (the quality gate's broken-arm calibration).
+            print("WARNING: LFVDM_BREAK_OBS_INDICATOR=1 — obs-indicator "
+                  "channel ZEROED (diagnostic broken-arm)")
+            indicator = torch.zeros_like(indicator)
+        x_in = torch.cat([x * (1 - obs) + x0 * obs, indicator], dim=2)
+        h = x_in.reshape(B * T, C + 1, Hs, Ws).to(self.dtype)
+
+        emb = timestep_embedding(timesteps.reshape(B * T), self.model_channels)
+        emb = self.time_embed(emb.to(self.dtype))
+        temb_bt = emb.reshape(B, T, -1)  # for RPENet
+        attn_args = ((temb_bt, frame_indices, attn_mask),
+                     dict(T=T, return_attn=return_attn_weights, impl=impl))
+
+        attns = []
+        hs = []
+        for block in self.input_blocks:
+            h, a = block(h, emb, attn_args)
+            attns += a
+            hs.append(h)
+        h, a = self.middle_block(h, emb, attn_args)
+        attns += a
+        for block in self.output_blocks:
+            h, a = block(torch.cat([h, hs.pop()], dim=1), emb, attn_args)
+            attns += a
+
+        out = self.out(h).reshape(B, T, self.out_channels, Hs, Ws)
+        if not return_attn_weights:
+            return out, None
+        return out, {"temporal": [a["temporal"] for a in attns],
+                     "spatial": [a["spatial"] for a in attns]}
+
+
+def attention_blocks(model: nn.Module) -> int:
+    """Number of FactorizedAttentionBlocks in ``model`` (each runs one temporal
+    and one spatial attention per forward)."""
+    return sum(isinstance(m, FactorizedAttentionBlock) for m in model.modules())
