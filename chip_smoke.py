@@ -7,21 +7,34 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
   1. device  — the card's name and power limit (nvidia-smi); a card is required.
   2. build   — compiles every CUDA kernel from ops/csrc (one nvcc per source,
                in parallel) and times the build.
-  3. kernels — each kernel against its plain PyTorch version at both flagship
-               shapes (ds 8 and ds 16), in f32 (TF32 off) and bf16: errors, and
+  3. kernels — each attention kernel against its plain PyTorch version at both
+               flagship shapes (ds 8 and ds 16), in f32 (TF32 off) and bf16;
+               the skip projection (skip_conv_stats) at every distinct flagship
+               up-path shape in bf16 and at ds 1 and ds 16 in f32: errors, and
                CUDA-event times of the kernel, the plain version, one PyTorch
-               library call where one exists (SDPA for spatial attention, a
-               yardstick only) and the least time the card could take.
+               library call where one exists (a yardstick only: SDPA for
+               spatial attention, baddbmm for the skip projection's y without
+               its bias and statistics) and the least time the card could take.
   4. unet    — the flagship U-Net (128 px, B=2, K=20, bf16, random non-zero
                weights) on the kernel path against the plain path (and the
-               same weights in f32); 7 launches of each kernel per forward;
-               then a torch.profiler breakdown of one forward's device time.
-  5. sample  — the main path: VideoSampler.sample_video over a 40-frame video
-               (autoreg, 3 windows of K=20, ancestral, 50 steps), then one DDIM
-               (ddim25) and one DPM-Solver++ (dpm20) window. Launch counts are
-               reset just before and read just after; each must equal 7 per
-               model call.
-  6. the "kernels" summary line, then {"ok": true, "device": {...}} last.
+               same weights in f32), and with the fused skip projection against
+               the unfused form (bf16 and f32), timed both ways; 7 + 7 + 10
+               launches per forward; then a torch.profiler breakdown of one
+               forward's device time.
+  5. sample  — the sampling path: VideoSampler.sample_video over a 40-frame
+               video (autoreg, 3 windows of K=20, ancestral, 50 steps), then one
+               DDIM (ddim25) and one DPM-Solver++ (dpm20) window. Launch counts
+               are reset just before and read just after; each must equal
+               7 + 7 + 10 per model call.
+  6. train   — the training path: TrainLoop on the flagship config (B=2, K=20,
+               bf16) over the synthetic dataset at 128 px: warm-up steps, then
+               timed steps (finite losses, parameters move, the EMA formula,
+               7 + 7 + 10 launches per step), one step in two microbatches, one
+               non-finite step that changes nothing, a checkpoint save and
+               resume, and a profile of one step by kernel group.
+  7. parity  — one train step's loss and gradients on the kernel path against
+               impl="plain", in bf16 and in f32 (TF32 off).
+  8. the "kernels" summary line, then {"ok": true, "device": {...}} last.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the lfvdm_tpu_torch package is not beside this script.
@@ -30,9 +43,12 @@ when the lfvdm_tpu_torch package is not beside this script.
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12              # H100 SXM data sheet
@@ -44,12 +60,24 @@ FLAGSHIP_B, FLAGSHIP_K = 2, 20
 # down 1 + middle 1 + up 2 at ds 16).
 ATTN_SHAPES = {"ds8": dict(H=4, D=256, F=96, per_forward=3),
                "ds16": dict(H=4, D=64, F=128, per_forward=4)}
+# Flagship up-path skip projections: (level, c1, c2, F, H = W) of the 10 up
+# ResBlocks of one forward (M = B·K·H·W rows).
+SKIP_SHAPES = [("ds16", 512, 512, 512, 8), ("ds16", 512, 384, 512, 8),
+               ("ds8", 512, 384, 384, 16), ("ds8", 384, 256, 384, 16),
+               ("ds4", 384, 256, 256, 32), ("ds4", 256, 128, 256, 32),
+               ("ds2", 256, 128, 128, 64), ("ds2", 128, 128, 128, 64),
+               ("ds1", 128, 128, 128, 128), ("ds1", 128, 128, 128, 128)]
+SKIP_F32_SHAPES = [SKIP_SHAPES[0], SKIP_SHAPES[8]]  # ds 16 and ds 1
+KERNEL_NAMES = ("temporal_rpe_attention", "spatial_attention", "skip_conv_stats")
+PER_FORWARD = {"temporal_rpe_attention": 7, "spatial_attention": 7, "skip_conv_stats": 10}
 REPLACES = {
     "temporal_rpe_attention": "lfvdm_tpu/ops/attention.py:210 (_temporal_pallas -> _temporal_kernel :143)",
     "spatial_attention": "lfvdm_tpu/ops/attention.py:106 (_spatial_pallas -> _spatial_kernel :81)",
+    "skip_conv_stats": "lfvdm_tpu/ops/skipconv.py:88 (_fwd_pallas -> _kernel :65)",
 }
 SOURCES = {"temporal_rpe_attention": "lfvdm_tpu_torch/ops/csrc/temporal_rpe_attention.cu",
-           "spatial_attention": "lfvdm_tpu_torch/ops/csrc/spatial_attention.cu"}
+           "spatial_attention": "lfvdm_tpu_torch/ops/csrc/spatial_attention.cu",
+           "skip_conv_stats": "lfvdm_tpu_torch/ops/csrc/skip_conv_stats.cu"}
 
 
 def emit(obj):
@@ -76,6 +104,51 @@ def bound(nbytes: float, flops: float, dtype_name: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Kernel-name groups for the device profiles, first match wins.
+KERNEL_GROUPS = (
+    ("port kernels", ("skip_conv_stats", "temporal_rpe_attention", "spatial_attention",
+                      "reduce_partials")),
+    ("optimizer and EMA (foreach)", ("multi_tensor", "foreach", "adam")),
+    ("GroupNorm", ("groupnorm", "group_norm", "rowwisemoments", "computefusedparams",
+                   "computeinternalgradients", "gammabeta")),
+    ("convolution", ("conv", "implicit", "dgrad", "wgrad", "fprop", "winograd")),
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("GEMM", ("gemm", "cutlass", "xmma", "sm90", "cublas", "splitk")),
+    ("concat and copies", ("cat", "copy")),
+    ("elementwise and reductions", ("elementwise", "vectorized", "reduce", "unrolled")),
+)
+
+
+def device_kernels_ms(prof, per):
+    """Device time by kernel name from a torch.profiler run, per unit of work.
+    User-annotation ranges on the device timeline (an optimizer step's span,
+    say) are left out: they would count their kernels twice."""
+    from torch.autograd import DeviceType
+
+    per_kernel = {}
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3 / per
+        if (e.device_type == DeviceType.CUDA and ms > 0
+                and not getattr(e, "is_user_annotation", False)):
+            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + ms
+    return per_kernel
+
+
+def group_ms(per_kernel):
+    groups = {}
+    for name, ms in per_kernel.items():
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def kernel_group(name: str) -> str:
+    low = name.lower()
+    for group, keys in KERNEL_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +275,64 @@ def phase_kernels():
                 if not err <= limit:
                     raise RuntimeError(f"{name} {ds} {dname}: max abs err {err} > {limit}")
                 results[(name, ds, dname)] = row
+    for dtype, shapes in ((torch.bfloat16, SKIP_SHAPES), (torch.float32, SKIP_F32_SHAPES)):
+        for shape in dict.fromkeys(shapes):  # distinct shapes, in order
+            results[("skip_conv_stats",) + shape + (str(dtype).split(".")[-1],)] = \
+                _skip_conv_case(dtype, shape, gen)
     return results
+
+
+def _skip_conv_case(dtype, shape, gen, B=FLAGSHIP_B, T=FLAGSHIP_K):
+    """skip_conv_stats at one up-path shape against its plain version: y, s1
+    and s2 errors; times of the kernel, the plain version and a baddbmm of
+    resid + W·[x1 ‖ x2] (y without the bias and the statistics)."""
+    import torch
+
+    from lfvdm_tpu_torch.ops import skipconv
+
+    level, c1, c2, F, S = shape
+    N, P, K = B * T, S * S, c1 + c2
+    dname = str(dtype).split(".")[-1]
+    esize = torch.finfo(dtype).bits // 8
+
+    def rnd(*shp, scale=1.0):
+        return (torch.randn(shp, generator=gen, device="cuda") * scale).to(dtype)
+
+    x1, x2, w = rnd(N, c1, S, S), rnd(N, c2, S, S), rnd(F, K, scale=K ** -0.5)
+    b, resid = rnd(F, scale=0.1), rnd(N, F, S, S)
+    args = (x1, x2, w, b, resid)
+    xcat = torch.cat([x1, x2], dim=1).reshape(N, K, P)
+    wb = w.expand(N, F, K)
+    r3 = resid.reshape(N, F, P)
+    with torch.no_grad():
+        y, s1, s2 = skipconv.skip_conv_stats(*args)
+        ry, r1, r2 = skipconv.skip_conv_stats_plain(*args)
+        torch.cuda.synchronize()
+        errs = [(y.float() - ry.float()).abs().max().item(), (s1 - r1).abs().max().item(),
+                (s2 - r2).abs().max().item()]
+        scales = [ry.float().abs().max().item(), r1.abs().max().item(), r2.abs().max().item()]
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (y, s1, s2))
+        ms = cuda_ms(lambda: skipconv.skip_conv_stats(*args), 50)
+        plain_ms = cuda_ms(lambda: skipconv.skip_conv_stats_plain(*args), 20)
+        lib_ms = cuda_ms(lambda: torch.baddbmm(r3, wb, xcat), 50)
+    nbytes = (N * (c1 + c2 + 2 * F) * P + F * K + F) * esize + 2 * N * F * 4
+    flops = 2 * N * P * K * F
+    b_ms, b_by = bound(nbytes, flops, dname)
+    rel = (1e-5, 1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-3, 2e-3)
+    limits = [r * sc for r, sc in zip(rel, scales)]
+    row = {"phase": "kernel", "name": "skip_conv_stats", "ds": level, "dtype": dname,
+           "c1": c1, "c2": c2, "F": F, "M": N * P, "err_y": errs[0], "err_s1": errs[1],
+           "err_s2": errs[2], "max_abs_ref": scales, "limit_abs": limits,
+           "max_abs_err": errs[0], "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": "baddbmm(resid, W, cat(x1, x2)): y without bias and statistics",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+    emit(row)
+    if not finite:
+        raise RuntimeError(f"skip_conv_stats {shape} {dname}: non-finite output")
+    for what, e, lim in zip(("y", "s1", "s2"), errs, limits):
+        if not e <= lim:
+            raise RuntimeError(f"skip_conv_stats {shape} {dname}: {what} max abs err {e} > {lim}")
+    return row
 
 
 def _sdpa(Fn):
@@ -218,26 +348,35 @@ def _sdpa(Fn):
     return run
 
 
-def kernels_line(results, launches):
+def kernels_line(results, launches_by_path):
     """One entry per kernel: numbers for the work of one flagship U-Net
-    forward in bf16 (3 launches at ds 8 + 4 at ds 16)."""
+    forward in bf16 (attention: 3 launches at ds 8 + 4 at ds 16; skip
+    projection: its 10 up-path shapes). ``launches`` is the count of the
+    training path (this slice's main path); the sampling path's is beside it."""
     entries = []
-    for name in ("temporal_rpe_attention", "spatial_attention"):
-        rows = [(results[(name, ds, "bfloat16")], shp["per_forward"])
-                for ds, shp in ATTN_SHAPES.items()]
+    for name in KERNEL_NAMES:
+        if name == "skip_conv_stats":
+            rows = [(results[("skip_conv_stats",) + shp + ("bfloat16",)], 1)
+                    for shp in SKIP_SHAPES]
+            unit = "one flagship U-Net forward, bf16: the 10 up-path skip projections"
+        else:
+            rows = [(results[(name, ds, "bfloat16")], shp["per_forward"])
+                    for ds, shp in ATTN_SHAPES.items()]
+            unit = "one flagship U-Net forward, bf16: 3 launches at ds8 + 4 at ds16"
         nbytes = sum(r["bytes"] * n for r, n in rows)
         flops = sum(r["flops"] * n for r, n in rows)
         b_ms, b_by = bound(nbytes, flops, "bfloat16")
         lib = [r["library_ms"] for r, _ in rows]
         entries.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches[name],
+            "launches": launches_by_path["train"][name],
+            "launches_by_path": {path: c[name] for path, c in launches_by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r, _ in rows),
             "ms": sum(r["ms"] * n for r, n in rows),
             "plain_ms": sum(r["plain_ms"] * n for r, n in rows),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if None in lib else sum(x * n for x, (_, n) in zip(lib, rows)),
-            "unit": "one flagship U-Net forward, bf16: 3 launches at ds8 + 4 at ds16",
+            "unit": unit,
         })
     return {"kernels": entries}
 
@@ -309,12 +448,13 @@ def phase_unet(cfg, model):
     two paths differ only by summation order (relative L2 <= 1e-4)."""
     import torch
 
-    from lfvdm_tpu_torch.models.unet import attention_blocks
+    from lfvdm_tpu_torch.models.unet import attention_blocks, fused_skip_blocks
     from lfvdm_tpu_torch.ops import attention as ops
 
-    n_blocks = attention_blocks(model)
-    if n_blocks != 7:
-        raise RuntimeError(f"flagship U-Net has {n_blocks} attention blocks, expected 7")
+    n_blocks = (attention_blocks(model), fused_skip_blocks(model))
+    if n_blocks != (7, 10):
+        raise RuntimeError(f"flagship U-Net has {n_blocks} attention and skip-projection "
+                           "blocks, expected (7, 10)")
     gen = torch.Generator(device="cuda").manual_seed(2)
     x, t, kw = window_inputs(cfg, "cuda", gen)
     with torch.no_grad():
@@ -327,9 +467,11 @@ def phase_unet(cfg, model):
             raise RuntimeError("the plain path launched a kernel")
         ms = cuda_ms(lambda: model(x, t, **kw), 10)
         plain_ms = cuda_ms(lambda: model(x, t, impl="plain", **kw), 10)
+        unfused, unfused_ms, fused_ms = _unfused(model, x, t, kw)
         _, model32, _ = flagship_model("cuda", compute_dtype="float32")
         out32, _ = model32(x, t, **kw)
         ref32, _ = model32(x, t, impl="plain", **kw)
+        unfused32 = _unfused(model32, x, t, kw, time_it=False)[0]
         del model32
 
     def rel(a, b):
@@ -338,21 +480,47 @@ def phase_unet(cfg, model):
     row = {"phase": "unet", "shape": list(x.shape), "dtype": "bfloat16",
            "launches_per_forward": counts, "rel_l2_vs_plain": rel(out, ref),
            "f32_rel_l2_vs_plain": rel(out32, ref32), "bf16_plain_vs_f32_plain": rel(ref, ref32),
+           "fused_vs_unfused_rel_l2": rel(out, unfused),
+           "f32_fused_vs_unfused_rel_l2": rel(out32, unfused32),
            "max_abs_out": ref.abs().max().item(), "ms_per_forward": ms,
-           "plain_ms_per_forward": plain_ms,
+           "plain_ms_per_forward": plain_ms, "fused_ms_per_forward": fused_ms,
+           "unfused_ms_per_forward": unfused_ms,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     emit(row)
     if not (torch.isfinite(out).all() and torch.isfinite(out32).all()):
         raise RuntimeError("U-Net output is not finite")
     if ref.abs().max().item() == 0.0:
         raise RuntimeError("U-Net output is exactly zero: the comparison would be vacuous")
-    if counts != {"temporal_rpe_attention": 7, "spatial_attention": 7}:
-        raise RuntimeError(f"expected 7 launches of each kernel per forward, got {counts}")
-    if not row["rel_l2_vs_plain"] <= 1e-2:
-        raise RuntimeError(f"bf16 kernel path vs plain path: relative L2 {row['rel_l2_vs_plain']} > 1e-2")
-    if not row["f32_rel_l2_vs_plain"] <= 1e-4:
-        raise RuntimeError(f"f32 kernel path vs plain path: relative L2 {row['f32_rel_l2_vs_plain']} > 1e-4")
+    if counts != PER_FORWARD:
+        raise RuntimeError(f"expected {PER_FORWARD} launches per forward, got {counts}")
+    for key, limit in (("rel_l2_vs_plain", 1e-2), ("f32_rel_l2_vs_plain", 1e-4),
+                       ("fused_vs_unfused_rel_l2", 1e-2), ("f32_fused_vs_unfused_rel_l2", 1e-4)):
+        if not row[key] <= limit:
+            raise RuntimeError(f"U-Net {key} = {row[key]} > {limit}")
     return row
+
+
+def _unfused(model, x, t, kw, time_it=True):
+    """The forward with the skip projection unfused (1x1 conv + add, sums
+    read again), and ms per forward unfused and fused, timed in turns
+    (fused, unfused, unfused, fused)."""
+    import torch
+
+    def run(fused):
+        model.fused_skip_conv = fused
+        return model(x, t, **kw)[0]
+
+    try:
+        out = run(False)
+        if not time_it:
+            return out, None, None
+        times = {True: [], False: []}
+        for fused in (True, False, False, True):
+            times[fused].append(cuda_ms(lambda: run(fused), 5))
+    finally:
+        model.fused_skip_conv = True
+    torch.cuda.synchronize()
+    return out, sum(times[False]) / 2, sum(times[True]) / 2
 
 
 def phase_profile(cfg, model, forwards: int = 3):
@@ -362,7 +530,6 @@ def phase_profile(cfg, model, forwards: int = 3):
     the forward's wall time measured without the profiler (whose host-side
     cost would otherwise count as idle)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -373,19 +540,17 @@ def phase_profile(cfg, model, forwards: int = 3):
             for _ in range(forwards):
                 model(x, t, **kw)
             torch.cuda.synchronize()
-    per_kernel = {}  # device-side events only: CPU ops also report their kernels' time
-    for e in prof.key_averages():
-        ms = e.self_device_time_total / 1e3 / forwards
-        if e.device_type == DeviceType.CUDA and ms > 0:
-            per_kernel[e.key] = per_kernel.get(e.key, 0.0) + ms
+    per_kernel = device_kernels_ms(prof, forwards)
     busy = sum(per_kernel.values())
-    attn = {name: sum(ms for k, ms in per_kernel.items() if f"{name}_kernel" in k)
-            for name in ("temporal_rpe_attention", "spatial_attention")}
+    attn = {name: sum(ms for k, ms in per_kernel.items() if f"{name}_" in k)
+            for name in KERNEL_NAMES}
+    syncs = _host_syncs(prof, forwards)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:25]
     emit({"phase": "profile", "forwards": forwards, "wall_ms_per_forward": wall_ms,
+          "groups_ms_per_forward": group_ms(per_kernel),
           "device_busy_ms_per_forward": busy,
           "idle_share": 1 - busy / wall_ms if busy else None,
-          "attention_kernels_ms_per_forward": attn,
+          "port_kernels_ms_per_forward": attn, "host_syncs_per_forward": syncs,
           "top_device_ms_per_forward": [[k[:90], ms] for k, ms in top],
           "note": None if busy else "the profiler saw no device time; phase 4 times by CUDA events"})
 
@@ -457,7 +622,48 @@ def phase_sample(cfg, model, diffusion):
             raise RuntimeError(f"{name} window is not finite")
         _check_launches(launches, s.model_calls)
         rows.append(r)
+    emit(_profile_window(cfg, model, x0, fi, obs, gen))
     return row["launches"], rows
+
+
+SYNC_EVENTS = ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+
+
+def _host_syncs(prof, per):
+    """Host waits on the device seen by the profiler, per unit of work: scalar
+    reads back (``.item()`` and the like) and explicit synchronisations."""
+    counts = {}
+    for e in prof.key_averages():
+        if e.key in SYNC_EVENTS:
+            counts[e.key] = counts.get(e.key, 0) + e.count / per
+    return counts
+
+
+def _profile_window(cfg, model, x0, fi, obs, gen, spacing="ddim10"):
+    """Device-busy time per model call of a DDIM window under torch.profiler,
+    beside the same window's wall time per call without it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfvdm_tpu_torch.config import create_diffusion
+    from lfvdm_tpu_torch.sampling.driver import VideoSampler
+
+    s = VideoSampler(model, create_diffusion(dict(cfg, timestep_respacing=spacing)),
+                     use_ddim=True, eta=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.sample_window(x0, fi, obs, 1 - obs, generator=gen)
+    torch.cuda.synchronize()
+    calls = s.model_calls
+    wall_ms = (time.perf_counter() - t0) / calls * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        s.sample_window(x0, fi, obs, 1 - obs, generator=gen)
+        torch.cuda.synchronize()
+    busy = sum(device_kernels_ms(prof, calls).values())
+    return {"phase": "sample_profile", "respacing": spacing, "model_calls": calls,
+            "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy,
+            "idle_share": 1 - busy / wall_ms, "host_syncs_per_call": _host_syncs(prof, calls)}
 
 
 def _check_video(samples, video, n_obs, used, T):
@@ -473,9 +679,252 @@ def _check_video(samples, video, n_obs, used, T):
 
 
 def _check_launches(launches, calls):
-    want = {"temporal_rpe_attention": 7 * calls, "spatial_attention": 7 * calls}
+    want = {name: n * calls for name, n in PER_FORWARD.items()}
     if launches != want:
-        raise RuntimeError(f"launch counts {launches} != 7 per model call ({want})")
+        raise RuntimeError(f"launch counts {launches} != {PER_FORWARD} per model call ({want})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the training path — TrainLoop on the flagship config
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6  # timed steps
+# Warm-up steps: the synthetic dataset renders its 16 videos on the host
+# during its first epoch (2 batches of 2 per step), so the timed steps start
+# once every video is cached.
+TRAIN_WARMUP = 4
+def phase_train(ckpt_dir):
+    """TrainLoop at the flagship config over 128 px synthetic videos: the
+    checks of the training path; returns its launch counts."""
+    import torch
+
+    from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
+    from lfvdm_tpu_torch.data.datasets import load_data
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.training.train_loop import TrainLoop, train_step
+
+    cfg = dict(flagship_config())
+    rate = "0.9999"
+
+    def new_loop(ckpt_dir, resume=False):
+        model, diffusion = create_model_and_diffusion(cfg, device="cuda", seed=0)
+        data = load_data("synthetic", batch_size=FLAGSHIP_B, image_size=cfg["image_size"])
+        return TrainLoop(model=model, diffusion=diffusion, data=data, batch_size=FLAGSHIP_B,
+                         max_frames=FLAGSHIP_K, lr=1e-4, ema_rate=rate, log_interval=1000,
+                         save_interval=0, checkpoint_dir=ckpt_dir, config=cfg, seed=0,
+                         resume=resume)
+
+    loop = new_loop(ckpt_dir)
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_WARMUP):
+        loop.run_step()
+        loop.step += 1
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    named = dict(loop.model.named_parameters())
+    p_before = {n: p.detach().clone() for n, p in named.items()}
+    ema_leaf = "output_blocks.0.0.skip_connection.weight"
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    step_s, losses = [], []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:
+            e_before = loop.state.ema[rate][ema_leaf].clone()
+        t0 = time.perf_counter()
+        metrics = loop.run_step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        loop.step += 1
+        losses.append(metrics["loss"].float().cpu().tolist())
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    r = float(rate)
+    want_ema = e_before * r + named[ema_leaf].detach() * (1 - r)
+    ema_err = (loop.state.ema[rate][ema_leaf] - want_ema).abs().max().item()
+    moved = max((p.detach() - p_before[n]).abs().max().item() for n, p in named.items())
+
+    # The host's share of a step: drawing, masking and uploading one batch.
+    t0 = time.perf_counter()
+    for _ in range(3):
+        loop.next_step_inputs()
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) / 3 * 1e3
+
+    # One step in two microbatches: twice the forwards.
+    batch, t, w, _, _ = loop.next_step_inputs()
+    ops.reset_launch_counts()
+    m2 = train_step(loop.state, batch, t, w, diffusion=loop.diffusion, generator=loop.generator,
+                    n_microbatches=2)
+    torch.cuda.synchronize()
+    micro_launches = ops.launch_counts()
+
+    # One step on a batch holding a NaN: nothing may change.
+    batch, t, w, _, _ = loop.next_step_inputs()
+    batch["x0"][0, 0, 0, 0, 0] = float("nan")
+    before = _clone(loop.state.state_dict())
+    m_nan = train_step(loop.state, batch, t, w, diffusion=loop.diffusion,
+                       generator=loop.generator)
+    after = loop.state.state_dict()
+    nan_unchanged = _states_equal(before, after, ignore_step=True)
+
+    # Save and resume into a fresh loop (a new model and optimizer).
+    t0 = time.perf_counter()
+    loop.save()
+    saved = loop.state.state_dict()
+    resumed = new_loop(ckpt_dir, resume=True)
+    resume_equal = _states_equal(saved, resumed.state.state_dict()) and resumed.step == loop.step
+    save_resume_s = time.perf_counter() - t0
+    del resumed
+
+    # A profile of one step by kernel group.
+    profile = _profile_train_step(loop)
+
+    row = {"phase": "train", "config": "flagship", "B": FLAGSHIP_B, "K": FLAGSHIP_K,
+           "dtype": cfg["compute_dtype"], "dataset": "synthetic 128 px, T=100",
+           "warmup_steps": TRAIN_WARMUP, "warmup_s": warm_s, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in step_s],
+           "mean_ms_per_step": sum(step_s) / len(step_s) * 1e3,
+           "peak_mem_gib": peak / 2**30, "host_batch_prep_ms": prep_ms, "losses": losses, "param_max_change": moved,
+           "ema_formula_max_abs_err": ema_err, "launches": launches,
+           "microbatch_launches": micro_launches,
+           "microbatch_loss": m2["weighted_loss"].item(),
+           "nan_step_skipped": m_nan["skipped_nonfinite"].item(),
+           "nan_step_unchanged": nan_unchanged, "save_resume_equal": resume_equal,
+           "save_resume_s": save_resume_s, "profile": profile}
+    emit(row)
+    if not all(math.isfinite(x) for step in losses for x in step):
+        raise RuntimeError(f"non-finite training loss: {losses}")
+    if not moved > 0:
+        raise RuntimeError("the parameters did not change")
+    if not ema_err <= 1e-6 * max(want_ema.abs().max().item(), 1e-30):
+        raise RuntimeError(f"EMA leaf differs from e·r + p·(1 − r) by {ema_err}")
+    want = {name: n * TRAIN_STEPS for name, n in PER_FORWARD.items()}
+    if launches != want:
+        raise RuntimeError(f"train launches {launches} != {want}")
+    if micro_launches != {name: 2 * n for name, n in PER_FORWARD.items()}:
+        raise RuntimeError(f"microbatch launches {micro_launches} != twice {PER_FORWARD}")
+    if not math.isfinite(m2["weighted_loss"].item()) or m2["skipped_nonfinite"].item():
+        raise RuntimeError("the microbatch step failed")
+    if m_nan["skipped_nonfinite"].item() != 1.0 or not nan_unchanged:
+        raise RuntimeError("the non-finite step was not skipped cleanly")
+    if not resume_equal:
+        raise RuntimeError("the resumed state differs from the saved one")
+    return launches
+
+
+def _clone(tree):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _states_equal(a, b, ignore_step=False) -> bool:
+    """Every tensor and count of two train-state dicts equal (on any device)."""
+    import torch
+
+    if isinstance(a, dict):
+        keys = set(a) - ({"step"} if ignore_step else set())
+        return set(a) == set(b) and all(_states_equal(a[k], b[k], ignore_step) for k in keys)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def _profile_train_step(loop, steps: int = 2):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            loop.run_step()
+            loop.step += 1
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    per_kernel = device_kernels_ms(prof, steps)
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:30]
+    return {"steps": steps, "wall_ms_per_step_profiled": wall_ms,
+            "device_busy_ms_per_step": busy, "host_syncs_per_step": _host_syncs(prof, steps),
+            "groups_ms_per_step": group_ms(per_kernel),
+            "top_device_ms_per_step": [[k[:90], ms, kernel_group(k)] for k, ms in top]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: one train step, kernel path against the plain path
+# ---------------------------------------------------------------------------
+
+
+def phase_train_parity():
+    """From identical weights (random, zero layers at 1/10 scale), batch, t
+    and noise: the loss and gradients of one step on the kernel path against
+    impl="plain", in bf16 and in f32 with TF32 off (B=2, or B=1 if B=2 does
+    not fit)."""
+    import torch
+
+    rows = []
+    for compute_dtype in ("bfloat16", "float32"):
+        for B in (FLAGSHIP_B, 1):
+            try:
+                rows.append(_parity_once(compute_dtype, B))
+                break
+            except torch.cuda.OutOfMemoryError:
+                if B == 1:
+                    raise
+            torch.cuda.empty_cache()  # after the failed attempt's frames are gone
+    bf16, f32 = rows
+    if not bf16["loss_rel_err"] <= 1e-2:
+        raise RuntimeError(f"bf16 train step: loss relative error {bf16['loss_rel_err']} > 1e-2")
+    if not f32["loss_rel_err"] <= 1e-5:
+        raise RuntimeError(f"f32 train step: loss relative error {f32['loss_rel_err']} > 1e-5")
+    if not f32["grad_rel_l2"] <= 1e-4:
+        raise RuntimeError(f"f32 train step: gradient relative L2 {f32['grad_rel_l2']} > 1e-4")
+
+
+def _parity_once(compute_dtype, B):
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.config import create_diffusion
+    from lfvdm_tpu_torch.training.masks import sample_training_batch
+    from lfvdm_tpu_torch.training.train_loop import backward_microbatches
+
+    cfg, model, _ = flagship_model("cuda", compute_dtype=compute_dtype)
+    diffusion = create_diffusion(dict(cfg, timestep_respacing=""))  # training's 1000 steps
+    rng = np.random.default_rng(6)
+    C, S = cfg["in_channels"], cfg["image_size"]
+    video = rng.uniform(-1, 1, (B, 60, C, S, S)).astype(np.float32)
+    x0, fi, obs, lat = sample_training_batch(rng, video, FLAGSHIP_K, batch2=video[::-1])
+    batch = {"x0": torch.tensor(x0, device="cuda"),
+             "frame_indices": torch.tensor(fi, dtype=torch.int64, device="cuda"),
+             "obs_mask": torch.tensor(obs, device="cuda"),
+             "latent_mask": torch.tensor(lat, device="cuda")}
+    t = torch.tensor(rng.integers(0, diffusion.num_timesteps, B), device="cuda")
+    w = torch.ones(B, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    noise = torch.randn(x0.shape, generator=gen, device="cuda")
+    model.train()
+    out = {}
+    for impl in ("auto", "plain"):
+        model.zero_grad(set_to_none=True)
+        loss, _ = backward_microbatches(model, diffusion, batch, t, w, noise=noise, impl=impl)
+        out[impl] = (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]))
+    (lk, gk), (lp, gp) = out["auto"], out["plain"]
+    row = {"phase": "train_parity", "dtype": compute_dtype, "B": B, "K": FLAGSHIP_K,
+           "loss_kernel": lk, "loss_plain": lp, "loss_rel_err": abs(lk - lp) / abs(lp),
+           "grad_rel_l2": ((gk - gp).norm() / gp.norm()).item(),
+           "grad_norm": gp.norm().item(), "finite": bool(torch.isfinite(gk).all()),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    del model, out, gk, gp
+    torch.cuda.empty_cache()
+    if not row["finite"]:
+        raise RuntimeError(f"{compute_dtype} train step: non-finite gradients")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -501,8 +950,17 @@ def main() -> int:
     cfg, model, diffusion = flagship_model("cuda")
     phase_unet(cfg, model)
     phase_profile(cfg, model)
-    launches, _ = phase_sample(cfg, model, diffusion)
-    emit(kernels_line(results, launches))
+    sample_launches, _ = phase_sample(cfg, model, diffusion)
+    del model
+    ckpt_root = os.path.join(here, "checkpoints")
+    os.makedirs(ckpt_root, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=ckpt_root)
+    try:
+        train_launches = phase_train(ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    phase_train_parity()
+    emit(kernels_line(results, {"train": train_launches, "sample_video": sample_launches}))
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Config: defaults dict -> model + diffusion (counterpart of lfvdm_tpu/config.py).
 
 The defaults and the flagship config are the JAX package's, key for key, so
-one config dict builds either package's model.
+one config dict builds either package's model; the JAX package ignores the
+one key it lacks, ``fused_skip_conv``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,15 @@ def model_and_diffusion_defaults() -> Dict[str, Any]:
         use_rpe_net=True,
         # Torso compute dtype ("bfloat16" or "float32"); params stay f32.
         compute_dtype="bfloat16",
+        # The up path's skip projection, residual add and next-GroupNorm
+        # statistics as one CUDA kernel (ops/skipconv.py). The counterpart of
+        # the JAX package's LFVDM_PALLAS_SKIPCONV, which defaults off there
+        # because under XLA the custom call's layout constraints and fusion
+        # barrier cost more relayout copies than the kernel saves on a TPU.
+        # Eager PyTorch has neither effect, and the unfused form makes three
+        # passes (concat conv, residual add, a statistics re-read), so the
+        # port turns it on.
+        fused_skip_conv=True,
     )
 
 
@@ -82,12 +92,18 @@ def create_model(
     dropout: float = 0.0,
     use_rpe_net: bool = True,
     compute_dtype: str = "bfloat16",
+    fused_skip_conv: bool = True,
+    use_checkpoint: bool = False,
     device="cuda",
     seed: int = 0,
 ) -> UNetVideoModel:
-    """Build the video U-Net with torch-default init drawn from ``seed``, on ``device``."""
+    """Build the video U-Net with torch-default init drawn from ``seed``, on
+    ``device``. The module is left in the mode a new ``nn.Module`` has; the
+    trainer and the sampler set the one they need."""
     if image_size not in CHANNEL_MULT_BY_IMAGE_SIZE:
         raise ValueError(f"unsupported image size: {image_size}")
+    if use_checkpoint:
+        raise NotImplementedError("use_checkpoint (rematerialisation) is not ported yet")
     device = resolve_device(device)
     attention_ds = tuple(image_size // int(res) for res in str(attention_resolutions).split(","))
     model = UNetVideoModel(
@@ -102,10 +118,11 @@ def create_model(
         num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm,
         use_rpe_net=use_rpe_net,
+        fused_skip_conv=fused_skip_conv,
         dtype=getattr(torch, compute_dtype),
     )
     init_parameters(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return model.to(device)
 
 
 def create_gaussian_diffusion(
@@ -163,6 +180,7 @@ def create_model_and_diffusion(config: Dict[str, Any], *, device="cuda", seed: i
         num_heads=cfg["num_heads"], num_heads_upsample=cfg["num_heads_upsample"],
         use_scale_shift_norm=cfg["use_scale_shift_norm"], dropout=cfg["dropout"],
         use_rpe_net=cfg["use_rpe_net"], compute_dtype=cfg["compute_dtype"],
+        fused_skip_conv=cfg["fused_skip_conv"], use_checkpoint=cfg["use_checkpoint"],
         device=device, seed=seed,
     )
     return model, create_diffusion(cfg)

@@ -1,5 +1,5 @@
-"""Gaussian diffusion core: DDPM and DDIM sampling (counterpart of
-lfvdm_tpu/diffusion/gaussian.py).
+"""Gaussian diffusion core: DDPM and DDIM sampling and the training losses
+(counterpart of lfvdm_tpu/diffusion/gaussian.py).
 
 Schedule tables are computed on the host in float64 (numpy) and become f32
 tensors on the sampled tensor's device. Timestep respacing is folded in:
@@ -9,8 +9,8 @@ numbers come from an explicit ``torch.Generator`` on the sampling device, or
 are injected (``noise=``) so that tests can hand both packages the same
 numbers.
 
-Not ported yet: training losses and likelihood evaluation (the training
-slice), encoder reuse and the attention-weight sampler.
+Not ported yet: likelihood evaluation (``calc_bpd_loop``), encoder reuse
+and the attention-weight sampler.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .losses import discretized_gaussian_log_likelihood, normal_kl
 from .schedules import (
     get_named_beta_schedule,
     respaced_betas,
@@ -48,6 +49,20 @@ class LossType(enum.Enum):
     RESCALED_MSE = enum.auto()
     KL = enum.auto()
     RESCALED_KL = enum.auto()
+
+    def is_vb(self):
+        return self in (LossType.KL, LossType.RESCALED_KL)
+
+
+def mean_flat(tensor, mask=None):
+    """Mean over all non-batch dims, after an optional multiplicative mask.
+
+    Like the reference, this does NOT renormalise by the mask size: the loss
+    scale depends on the number of masked frames by design.
+    """
+    if mask is not None:
+        tensor = tensor * mask
+    return tensor.mean(dim=tuple(range(1, tensor.ndim)))
 
 
 ModelFn = Callable[..., torch.Tensor]
@@ -186,6 +201,12 @@ class GaussianDiffusion:
 
     # ---- forward process q ----
 
+    def q_mean_variance(self, x_start, t):
+        mean = self._extract("sqrt_alphas_cumprod", t, x_start.ndim) * x_start
+        variance = 1.0 - self._extract("alphas_cumprod", t, x_start.ndim)
+        log_variance = self._extract("log_one_minus_alphas_cumprod", t, x_start.ndim)
+        return mean, variance, log_variance
+
     def q_sample(self, x_start, t, noise):
         """Sample q(x_t | x_0) with the given noise."""
         if noise.shape != x_start.shape:
@@ -320,6 +341,82 @@ class GaussianDiffusion:
                                    clip_denoised=clip_denoised, denoised_fn=denoised_fn,
                                    model_kwargs=model_kwargs)["sample"]
         return img
+
+    # ---- training losses ----
+
+    def _vb_terms_bpd_from_output(self, model_output, x_start, x_t, t, clip_denoised=True,
+                                  latent_mask=None) -> Dict[str, torch.Tensor]:
+        """The variational-bound term (bits/dim) from a model output."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance_from_output(model_output, x_t, t, clip_denoised=clip_denoised)
+        kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+        kl = mean_flat(kl, mask=latent_mask) / np.log(2.0)
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+        decoder_nll = mean_flat(decoder_nll, mask=latent_mask) / np.log(2.0)
+        output = torch.where(t == 0, decoder_nll, kl)
+        return {"output": output, "pred_xstart": out["pred_xstart"]}
+
+    def _vb_terms_bpd(self, model_fn, x_start, x_t, t, clip_denoised=True, model_kwargs=None,
+                      latent_mask=None) -> Dict[str, torch.Tensor]:
+        model_output = self.call_model(model_fn, x_t, t, model_kwargs)
+        return self._vb_terms_bpd_from_output(model_output, x_start, x_t, t,
+                                              clip_denoised=clip_denoised,
+                                              latent_mask=latent_mask)
+
+    def training_losses(self, model_fn, x_start, t, *, model_kwargs=None, noise=None,
+                        generator=None, latent_mask=None,
+                        eval_mask=None) -> Dict[str, torch.Tensor]:
+        """Per-batch-element training losses, each (B,).
+
+        ``noise`` (x_start's shape) is drawn from ``generator`` when not
+        given. ``latent_mask`` masks the loss (multiply, then mean over the
+        non-batch dims); ``eval_mask`` gives the "eval-mse" term.
+        """
+        if noise is None:
+            noise = _randn(x_start.shape, x_start, generator)
+        x_t = self.q_sample(x_start, t, noise=noise)
+        terms: Dict[str, torch.Tensor] = {}
+
+        if self.loss_type.is_vb():
+            terms["loss"] = self._vb_terms_bpd(model_fn, x_start, x_t, t, clip_denoised=False,
+                                               model_kwargs=model_kwargs,
+                                               latent_mask=latent_mask)["output"]
+            if self.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+        elif self.loss_type in (LossType.MSE, LossType.RESCALED_MSE):
+            model_output = self.call_model(model_fn, x_t, t, model_kwargs)
+            if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+                C = x_t.shape[-3]
+                if model_output.shape[-3] != 2 * C:
+                    raise ValueError(f"learned-variance model must output 2*C={2 * C} "
+                                     f"channels, got {model_output.shape[-3]}")
+                mean_out, var_out = model_output.split(C, dim=-3)
+                # Learn the variance with the bound but freeze the mean, so
+                # that the VB term does not perturb the MSE gradient.
+                frozen = torch.cat([mean_out.detach(), var_out], dim=-3)
+                terms["vb"] = self._vb_terms_bpd_from_output(
+                    frozen, x_start, x_t, t, clip_denoised=False,
+                    latent_mask=latent_mask)["output"]
+                if self.loss_type == LossType.RESCALED_MSE:
+                    terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
+                model_output = mean_out
+            target = {
+                ModelMeanType.PREVIOUS_X: lambda: self.q_posterior_mean_variance(
+                    x_start, x_t, t)[0],
+                ModelMeanType.START_X: lambda: x_start,
+                ModelMeanType.EPSILON: lambda: noise,
+            }[self.model_mean_type]()
+            if not model_output.shape == target.shape == x_start.shape:
+                raise ValueError(f"model output {model_output.shape} != target {target.shape}")
+            sq_err = (target - model_output) ** 2
+            terms["mse"] = mean_flat(sq_err, mask=latent_mask)
+            if eval_mask is not None:
+                terms["eval-mse"] = mean_flat(sq_err, mask=eval_mask)
+            terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+        else:
+            raise NotImplementedError(self.loss_type)
+        return terms
 
 
 def _randn(shape, like=None, generator=None, device=None, dtype=None):

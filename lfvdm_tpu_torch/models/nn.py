@@ -3,7 +3,9 @@
 * Parameters are f32; ``Linear`` and ``Conv2d`` cast their input, weight and
   bias to a compute dtype, as a Flax ``Dense``/``Conv`` with ``dtype=`` does.
 * ``GroupNorm32`` computes its statistics and the normalisation in f32 and
-  casts back (or emits f32 for the output head).
+  casts back (or emits f32 for the output head). Given per-channel sums
+  (``channel_sums``, or the skip projection's kernel), it forms the group
+  statistics from them instead of reading its input again.
 * Initialisation is torch's default (uniform ±1/√fan_in for weights and
   biases), drawn from an explicit ``torch.Generator`` by ``init_parameters``;
   "zero modules" start at zero. Construction itself draws nothing.
@@ -45,9 +47,36 @@ class GroupNorm32(nn.GroupNorm):
         super().__init__(g, channels, eps=eps)
         self.out_dtype = out_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+    def forward(self, x: torch.Tensor, precomputed_sums=None) -> torch.Tensor:
+        """``precomputed_sums``: optional per-(sample, channel) f32 (Σx, Σx²),
+        each (N, C), taken where x's parts were produced. The group variance
+        is then the unanchored E[x²] − E[x]² (lfvdm_tpu ``GroupNorm32``), and
+        gradients flow through the sums."""
+        if precomputed_sums is None:
+            y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+            return y.to(self.out_dtype or x.dtype)
+        N, C = x.shape[:2]
+        G = self.num_groups
+        n_red = x[0, 0].numel() * (C // G)
+        s1, s2 = precomputed_sums
+        g_mean = s1.reshape(N, G, C // G).sum(-1, keepdim=True) / n_red  # (N, G, 1)
+        g_var = (s2.reshape(N, G, C // G).sum(-1, keepdim=True) / n_red
+                 - g_mean.square()).clamp(min=0.0)
+        # per-channel affine y = x·mul + add, broadcast from the groups
+        mul = torch.rsqrt(g_var + self.eps) * self.weight.reshape(G, C // G)
+        add = self.bias.reshape(G, C // G) - g_mean * mul
+        bshape = (N, C) + (1,) * (x.ndim - 2)
+        mul, add = mul.reshape(bshape), add.reshape(bshape)
+        # add + x·mul in f32 in one pass over x (x is promoted as it is read)
+        y = torch.addcmul(add, x, mul)
         return y.to(self.out_dtype or x.dtype)
+
+
+def channel_sums(x: torch.Tensor):
+    """Per-(sample, channel) f32 (Σx, Σx²) over every axis after the channel
+    axis of an (N, C, ...) tensor: the ``precomputed_sums`` of ``GroupNorm32``."""
+    dims = tuple(range(2, x.ndim))
+    return x.sum(dim=dims, dtype=torch.float32), x.float().square().sum(dim=dims)
 
 
 class Linear(nn.Linear):

@@ -12,9 +12,17 @@ Module names follow the reference checkpoint (``time_embed.0/2``,
 ``in_layers``/``emb_layers``/``out_layers``/``skip_connection``, ...), so
 ``lfvdm_tpu.utils.torch_convert.convert_unet_state_dict`` maps this model's
 ``state_dict`` into the JAX parameter tree and ``utils/convert.py`` maps it
-back. The JAX package's TPU-only rewrites (split up path, dilated upsample
-conv, remat policies, fused skip conv) are not ported: this module runs the
-plain forms they equal (concat + conv, nearest + conv).
+back.
+
+The up path follows the JAX package's: each up ResBlock's input GroupNorm
+takes per-part channel sums (of h and of the skip tensor) instead of reading
+the concat again, and with ``fused_skip_conv`` (the default) its 1x1 skip
+projection, residual add and the output's channel sums run as one CUDA
+kernel (``ops.skipconv.skip_conv_stats``) that reads h and the skip tensor in
+place; the next ResBlock takes those sums when nothing came between. The
+JAX package's other TPU-only rewrites (split up path, dilated upsample conv,
+remat policies) are not ported: this module runs the plain forms they equal
+(concat + conv, nearest + conv).
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .nn import Conv2d, GroupNorm32, Linear, timestep_embedding
+from ..ops.skipconv import skip_conv_stats
+from .nn import Conv2d, GroupNorm32, Linear, channel_sums, timestep_embedding
 from .rpe import RPEAttention
 
 
@@ -53,8 +62,18 @@ class ResBlock(nn.Module):
         else:
             self.skip_connection = nn.Identity()
 
-    def forward(self, x, emb):
-        h = self.in_layers(x)
+    def forward(self, x, emb, *, in_stats=None, parts=None, impl: str = "auto"):
+        """Returns ``(out, out_stats)``.
+
+        ``in_stats``: optional per-channel (Σx, Σx²) for the input GroupNorm
+        (the up path's, taken from the two parts of the concat x).
+        ``parts``: the two halves (h, skip) of the concat x. With them the
+        skip projection, the residual add and the output's channel sums run
+        as one ``skip_conv_stats`` call, and ``out_stats`` holds those sums;
+        otherwise ``out_stats`` is None. ``impl="plain"`` asks that call for
+        its plain version."""
+        h = self.in_layers[0](x, precomputed_sums=in_stats)
+        h = self.in_layers[2](self.in_layers[1](h))
         emb_out = self.emb_layers(emb)[:, :, None, None]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
@@ -62,7 +81,13 @@ class ResBlock(nn.Module):
             h = self.out_layers[1:](h)
         else:
             h = self.out_layers(h + emb_out)
-        return self.skip_connection(x) + h
+        if parts is None:
+            return self.skip_connection(x) + h, None
+        conv = self.skip_connection
+        dt = conv.compute_dtype
+        y, s1, s2 = skip_conv_stats(parts[0].to(dt), parts[1].to(dt), conv.weight.to(dt),
+                                    conv.bias.to(dt), h, impl=impl)
+        return y, (s1, s2)
 
 
 class Downsample(nn.Module):
@@ -122,19 +147,35 @@ class FactorizedAttentionBlock(nn.Module):
 
 
 class _Blocks(nn.ModuleList):
-    """A sequence of U-Net layers; each is called with what it needs."""
+    """A sequence of U-Net layers; each is called with what it needs.
 
-    def forward(self, h, emb, attn_args):
+    On the up path ``skip`` is the skip tensor that the first layer (a
+    ResBlock) concatenates with h, ``in_stats`` that block's input sums, and
+    ``fused`` routes its skip projection through ``skip_conv_stats``.
+    Returns (h, attention weights, the channel sums of h when the last layer
+    emitted them, else None)."""
+
+    def forward(self, h, emb, attn_args, *, skip=None, in_stats=None, fused=False):
         attns = []
+        stats = None
         for layer in self:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb)
+                if skip is None:
+                    h, stats = layer(h, emb)
+                else:
+                    x = torch.cat([h, skip], dim=1)
+                    h, stats = layer(x, emb, in_stats=in_stats,
+                                     parts=(h, skip) if fused else None,
+                                     impl=attn_args[1]["impl"])
+                    skip = None
             elif isinstance(layer, FactorizedAttentionBlock):
                 h, a = layer(h, *attn_args[0], **attn_args[1])
                 attns.append(a)
+                stats = None
             else:
                 h = layer(h)
-        return h, attns
+                stats = None
+        return h, attns, stats
 
 
 class UNetVideoModel(nn.Module):
@@ -148,8 +189,10 @@ class UNetVideoModel(nn.Module):
       obs_mask:      (B, T, 1, 1, 1) — 1 where the frame is observed
       latent_mask:   (B, T, 1, 1, 1) — 1 where the frame is being generated
     Returns (out, attns): out (B, T, out_C, H, W) f32; attns is None unless
-    ``return_attn_weights``. ``impl="plain"`` runs the attention kernels'
-    plain versions (for comparisons on the card).
+    ``return_attn_weights``. ``impl="plain"`` runs every kernel's plain
+    version (for comparisons on the card). ``fused_skip_conv`` (an attribute
+    that may be changed after construction) routes the up path's skip
+    projections through ``ops.skipconv.skip_conv_stats``.
     """
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
@@ -157,8 +200,9 @@ class UNetVideoModel(nn.Module):
                  dropout: float = 0.0, channel_mult: Tuple[int, ...] = (1, 2, 4, 8),
                  num_heads: int = 1, num_heads_upsample: int = -1,
                  use_scale_shift_norm: bool = False, use_rpe_net: bool = True,
-                 dtype=torch.float32):
+                 fused_skip_conv: bool = True, dtype=torch.float32):
         super().__init__()
+        self.fused_skip_conv = fused_skip_conv
         self.in_channels, self.out_channels = in_channels, out_channels
         self.model_channels, self.dtype = model_channels, dtype
         self.num_res_blocks, self.channel_mult = num_res_blocks, tuple(channel_mult)
@@ -240,13 +284,22 @@ class UNetVideoModel(nn.Module):
         attns = []
         hs = []
         for block in self.input_blocks:
-            h, a = block(h, emb, attn_args)
+            h, a, _ = block(h, emb, attn_args)
             attns += a
             hs.append(h)
-        h, a = self.middle_block(h, emb, attn_args)
+        h, a, _ = self.middle_block(h, emb, attn_args)
         attns += a
+        # Up path: the input GroupNorm of each block takes per-part channel
+        # sums; the h part comes from the previous block's skip projection
+        # when it emitted them and nothing came between.
+        prev_stats = None
         for block in self.output_blocks:
-            h, a = block(torch.cat([h, hs.pop()], dim=1), emb, attn_args)
+            skip = hs.pop()
+            h_s1, h_s2 = prev_stats if prev_stats is not None else channel_sums(h)
+            k_s1, k_s2 = channel_sums(skip)
+            in_stats = (torch.cat([h_s1, k_s1], dim=1), torch.cat([h_s2, k_s2], dim=1))
+            h, a, prev_stats = block(h, emb, attn_args, skip=skip, in_stats=in_stats,
+                                     fused=self.fused_skip_conv)
             attns += a
 
         out = self.out(h).reshape(B, T, self.out_channels, Hs, Ws)
@@ -254,6 +307,12 @@ class UNetVideoModel(nn.Module):
             return out, None
         return out, {"temporal": [a["temporal"] for a in attns],
                      "spatial": [a["spatial"] for a in attns]}
+
+
+def fused_skip_blocks(model: nn.Module) -> int:
+    """Number of up-path ResBlocks whose skip projection runs
+    ``skip_conv_stats`` per forward when ``fused_skip_conv`` is on."""
+    return sum(isinstance(b[0], ResBlock) for b in model.output_blocks)
 
 
 def attention_blocks(model: nn.Module) -> int:

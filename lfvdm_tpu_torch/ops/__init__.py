@@ -8,3 +8,4 @@ from .attention import (  # noqa: F401
     temporal_rpe_attention,
     temporal_rpe_attention_plain,
 )
+from .skipconv import skip_conv_stats, skip_conv_stats_plain  # noqa: F401

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional, Sequence
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-KERNELS = ("temporal_rpe_attention", "spatial_attention")
+KERNELS = ("temporal_rpe_attention", "spatial_attention", "skip_conv_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

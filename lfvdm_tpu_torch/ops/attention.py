@@ -40,27 +40,14 @@ import ctypes
 import torch
 
 from . import _build
+from ._common import _DTYPE_CODES, _check_impl, _check_launch, _use_kernel
+from .skipconv import skip_conv_stats
 
 NEG_INF = torch.finfo(torch.float32).min
 MAX_FRAMES = 32      # temporal kernel: frames held in registers
 MAX_HEAD_DIM = 128   # spatial kernel: features per head
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-def _check_impl(impl: str):
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
-
-
-def _use_kernel(device: torch.device) -> bool:
-    """CPU tensors take the plain version; CUDA tensors the kernel."""
-    if device.type == "cpu":
-        return False
-    if device.type == "cuda":
-        return True
-    raise RuntimeError(f"no attention kernel for device {device}")
 
 
 def _check_kernel_inputs(tensors, dtype):
@@ -72,11 +59,6 @@ def _check_kernel_inputs(tensors, dtype):
             raise TypeError(f"inputs must share dtype {dtype}, got {t.dtype}")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {dtype}")
-
-
-def _check_launch(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
 # ---------------------------------------------------------------------------
@@ -222,10 +204,14 @@ def _replay_plain(plain, saved, g):
 
 
 def reset_launch_counts():
+    """Set the launch counter of every kernel of the port to 0."""
     spatial_attention.launches = 0
     temporal_rpe_attention.launches = 0
+    skip_conv_stats.launches = 0
 
 
 def launch_counts() -> dict:
+    """The launch counter of every kernel of the port, by kernel name."""
     return {"temporal_rpe_attention": temporal_rpe_attention.launches,
-            "spatial_attention": spatial_attention.launches}
+            "spatial_attention": spatial_attention.launches,
+            "skip_conv_stats": skip_conv_stats.launches}

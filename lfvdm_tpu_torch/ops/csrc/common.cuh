@@ -1,4 +1,4 @@
-// Scalar helpers shared by the attention kernels: every load widens to f32,
+// Scalar helpers shared by the kernels: every load widens to f32,
 // every store rounds from f32, so one template body serves float and bf16.
 #pragma once
 
@@ -7,7 +7,7 @@
 
 namespace lfvdm {
 
-// dtype codes passed from Python (ops/attention.py: _DTYPE_CODES).
+// dtype codes passed from Python (ops/_common.py: _DTYPE_CODES).
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }

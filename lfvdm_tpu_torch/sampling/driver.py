@@ -65,11 +65,17 @@ class VideoSampler:
         shape = tuple(x0.shape)
         common = dict(device=dev, noise=noise, generator=generator,
                       clip_denoised=self.clip_denoised, model_kwargs=kwargs)
-        if self.use_ddim:
-            return self.diffusion.ddim_sample_loop(self._model_fn, shape, eta=self.eta, **common)
-        if self.use_dpm:
-            return dpm_solver_pp_sample_loop(self.diffusion, self._model_fn, shape, **common)
-        return self.diffusion.p_sample_loop(self._model_fn, shape, **common)
+        was_training = self.model.training
+        self.model.eval()  # sampling runs the model as JAX does with train=False
+        try:
+            if self.use_ddim:
+                return self.diffusion.ddim_sample_loop(self._model_fn, shape, eta=self.eta,
+                                                       **common)
+            if self.use_dpm:
+                return dpm_solver_pp_sample_loop(self.diffusion, self._model_fn, shape, **common)
+            return self.diffusion.p_sample_loop(self._model_fn, shape, **common)
+        finally:
+            self.model.train(was_training)
 
     def sample_video(self, batch: np.ndarray, *, scheme_name: str, n_obs: int, max_frames: int,
                      step_size: int, generator: torch.Generator,

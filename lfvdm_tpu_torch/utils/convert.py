@@ -4,6 +4,8 @@ The inverse of ``lfvdm_tpu/utils/torch_convert.py``: it maps the Flax
 parameter tree of ``lfvdm_tpu.models.unet.UNetVideoModel`` onto the module
 names of ``lfvdm_tpu_torch.models.unet.UNetVideoModel`` (the reference
 checkpoint's names), so a JAX checkpoint loads with ``load_state_dict``.
+``train_state_from_jax`` maps a whole JAX train state (params, EMA copies,
+optax Adam state, step) onto the port's ``TrainState.state_dict()`` format.
 
 Layouts:
   flax Dense kernel (in, out)         -> torch Linear weight (out, in)
@@ -13,6 +15,7 @@ Layouts:
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping
 
 import numpy as np
@@ -20,7 +23,7 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32))  # a writable copy
 
 
 def _lin(sd, prefix, p):
@@ -126,3 +129,51 @@ def unet_state_dict_from_jax(params: Mapping, *, num_res_blocks: int, channel_mu
     _gn(sd, "out.0", p["out_norm"])
     _conv(sd, "out.2", p["out_conv"])
     return sd
+
+
+def _has_field(obj, name: str) -> bool:
+    return name in getattr(obj, "_fields", ()) or (isinstance(obj, Mapping) and name in obj)
+
+
+def _field(obj, name: str, index: int):
+    """``obj.name`` (a namedtuple, as jax.tree.map keeps it), ``obj[name]``
+    (a dict) or ``obj[index]`` (a plain sequence, as a raw restore gives it)."""
+    if name in getattr(obj, "_fields", ()):
+        return getattr(obj, name)
+    if isinstance(obj, Mapping):
+        return obj[name] if name in obj else obj[str(index)]
+    return obj[index]
+
+
+def _stage(opt_state, i: int):
+    if isinstance(opt_state, Mapping):
+        return opt_state[str(i)] if str(i) in opt_state else opt_state[i]
+    return opt_state[i]
+
+
+def train_state_from_jax(state: Mapping, *, num_res_blocks: int, channel_mult,
+                         attention_resolutions) -> dict:
+    """A JAX train state (``lfvdm_tpu.training.train_loop.init_train_state``
+    layout with numpy leaves: params, ``opt_state`` of ``make_optimizer``'s
+    optax AdamW, ``ema`` by rate, step) -> the port's train-state dict.
+
+    optax's Adam ``mu``/``nu`` become AdamW's ``exp_avg``/``exp_avg_sq`` and
+    its update count AdamW's ``step``; the schedule's count (optax keeps one
+    only for an annealed LR) becomes the LambdaLR count."""
+    conv = functools.partial(unet_state_dict_from_jax, num_res_blocks=num_res_blocks,
+                             channel_mult=channel_mult,
+                             attention_resolutions=attention_resolutions)
+    opt = state["opt_state"]
+    adam = _stage(opt, 0)
+    count = int(np.asarray(_field(adam, "count", 0)))
+    schedule = _stage(opt, 2)
+    schedule_count = (int(np.asarray(_field(schedule, "count", 0)))
+                      if _has_field(schedule, "count") else count)
+    return {
+        "params": conv(state["params"]),
+        "ema": {str(float(rate)): conv(tree) for rate, tree in state["ema"].items()},
+        "adam": {"count": count, "exp_avg": conv(_field(adam, "mu", 1)),
+                 "exp_avg_sq": conv(_field(adam, "nu", 2))},
+        "schedule_count": schedule_count,
+        "step": int(np.asarray(state["step"])),
+    }

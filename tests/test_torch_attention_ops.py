@@ -115,7 +115,8 @@ def test_cpu_calls_launch_no_kernel():
     ops.temporal_rpe_attention(*_torch(temporal_inputs(6)))
     ops.spatial_attention(*_torch(spatial_inputs(6)))
     ops.temporal_rpe_attention(*_torch(temporal_inputs(6)), impl="plain")
-    assert ops.launch_counts() == {"temporal_rpe_attention": 0, "spatial_attention": 0}
+    assert ops.launch_counts() == {"temporal_rpe_attention": 0, "spatial_attention": 0,
+                                  "skip_conv_stats": 0}
 
 
 def test_impl_must_be_auto_or_plain():

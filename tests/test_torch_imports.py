@@ -2,7 +2,7 @@
 
 An AST scan of every module of ``lfvdm_tpu_torch`` and of ``chip_smoke.py``
 (which runs on a machine without JAX) for ``import`` statements naming
-``jax``, ``flax`` or ``lfvdm_tpu``.
+``jax``, ``flax``, ``optax``, ``orbax`` or ``lfvdm_tpu``.
 """
 
 import ast
@@ -11,7 +11,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "lfvdm_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "lfvdm_tpu")
 FILES = sorted((ROOT / "lfvdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -34,7 +34,8 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for expected in ("lfvdm_tpu_torch/config.py", "lfvdm_tpu_torch/models/unet.py",
                      "lfvdm_tpu_torch/ops/attention.py", "lfvdm_tpu_torch/sampling/driver.py",
-                     "chip_smoke.py"):
+                     "lfvdm_tpu_torch/ops/skipconv.py", "lfvdm_tpu_torch/training/train_loop.py",
+                     "lfvdm_tpu_torch/training/checkpoint.py", "chip_smoke.py"):
         assert expected in names
 
 
@@ -46,4 +47,5 @@ def test_no_jax_imports(path):
 
 def test_forbidden_matches_only_the_jax_side():
     assert _forbidden("jax.numpy") and _forbidden("flax.linen") and _forbidden("lfvdm_tpu.ops")
+    assert _forbidden("optax") and _forbidden("orbax.checkpoint")
     assert not _forbidden("lfvdm_tpu_torch.ops") and not _forbidden("torch")

@@ -7,13 +7,15 @@ machine). On a machine with a card, and without JAX, run
 
 (``--noconftest``: the suite's conftest configures JAX). The flagship shapes
 are checked by ``chip_smoke.py``; these cover ragged tiles, short and long
-frame counts, odd widths, the launch counters and the input checks.
+frame counts, odd widths, the launch counters, the input checks and the
+skip projection's backward.
 """
 
 import pytest
 import torch
 
 from lfvdm_tpu_torch.ops import attention as ops
+from lfvdm_tpu_torch.ops import skipconv
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +121,75 @@ def test_backward_replays_the_plain_version(cuda):
     want = torch.autograd.grad(ops.spatial_attention_plain(q, k, v), (q, k, v), g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _skipconv_inputs(gen, N, c1, c2, F, H, W, dtype):
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    K = c1 + c2
+    return (rnd(N, c1, H, W), rnd(N, c2, H, W), rnd(F, K, scale=K ** -0.5), rnd(F, scale=0.1),
+            rnd(N, F, H, W))
+
+
+def _skipconv_tols(dtype, y, s1, s2):
+    """f32 (TF32 off): accumulation order only. bf16: y in bf16 ulps of its
+    scale; the statistics come from the same f32 values in another order."""
+    f32 = dtype == torch.float32
+    ys = y.float().abs().max().item()
+    return ((1e-5 if f32 else 2e-2) * ys, (1e-4 if f32 else 2e-3) * s1.abs().max().item(),
+            (1e-4 if f32 else 2e-3) * s2.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,c1,c2,F,H,W", [
+    (3, 40, 24, 72, 8, 8),      # c1 != c2, F not a multiple of the channel tile, P = 64
+    (2, 64, 72, 136, 6, 12),    # bf16 fast path: two channel tiles, the last pixel tile 8 wide
+    (2, 17, 5, 9, 5, 7),        # odd widths (element-wise path), one ragged pixel tile
+    (1, 96, 130, 200, 13, 11),  # K past several 32-deep slices, ragged F and P
+    (40, 512, 384, 512, 8, 8),  # flagship ds 16, block 1
+    (4, 128, 128, 128, 64, 64),  # flagship ds 2, block 1 (4 of the 40 frames)
+])
+def test_skip_conv_kernel_matches_plain(cuda, dtype, N, c1, c2, F, H, W):
+    args = _skipconv_inputs(cuda, N, c1, c2, F, H, W, dtype)
+    before = skipconv.skip_conv_stats.launches
+    y, s1, s2 = skipconv.skip_conv_stats(*args)
+    ry, r1, r2 = skipconv.skip_conv_stats_plain(*args)
+    torch.cuda.synchronize()
+    assert skipconv.skip_conv_stats.launches == before + 1
+    assert y.dtype == dtype and y.shape == ry.shape and s1.shape == (N, F) == s2.shape
+    ty, t1, t2 = _skipconv_tols(dtype, ry, r1, r2)
+    assert (y.float() - ry.float()).abs().max().item() <= ty
+    assert (s1 - r1).abs().max().item() <= t1
+    assert (s2 - r2).abs().max().item() <= t2
+
+
+def test_skip_conv_statistics_are_deterministic(cuda):
+    args = _skipconv_inputs(cuda, 4, 64, 64, 64, 32, 32, torch.bfloat16)
+    first = skipconv.skip_conv_stats(*args)
+    for _ in range(3):
+        again = skipconv.skip_conv_stats(*args)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_skip_conv_backward_matches_plain(cuda):
+    """The autograd backward (JAX's VJP in plain PyTorch) against autograd
+    through the plain version, with cotangents on y, s1 and s2."""
+    args = [a.requires_grad_() for a in _skipconv_inputs(cuda, 2, 24, 40, 36, 9, 10,
+                                                          torch.float32)]
+    gy = torch.randn(args[4].shape, generator=cuda, device="cuda")
+    g1 = torch.randn(2, 36, generator=cuda, device="cuda")
+    g2 = torch.randn(2, 36, generator=cuda, device="cuda") * 0.01
+    got = torch.autograd.grad(skipconv.skip_conv_stats(*args), args, (gy, g1, g2))
+    want = torch.autograd.grad(skipconv.skip_conv_stats_plain(*args), args, (gy, g1, g2))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_skip_conv_bad_inputs_raise(cuda):
+    x1, x2, w, b, r = _skipconv_inputs(cuda, 2, 8, 8, 8, 4, 4, torch.float32)
+    with pytest.raises(TypeError):
+        skipconv.skip_conv_stats(x1.half(), x2.half(), w.half(), b.half(), r.half())
+    with pytest.raises(ValueError):
+        skipconv.skip_conv_stats(x1, x2, w[:, :15], b, r)

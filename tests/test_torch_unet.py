@@ -13,10 +13,13 @@ import pytest
 import torch
 
 from lfvdm_tpu.config import create_model_and_diffusion as j_create
+from lfvdm_tpu.models.nn import GroupNorm32 as JGroupNorm32
+from lfvdm_tpu.models.nn import channel_sums as j_channel_sums
 from lfvdm_tpu.utils.torch_convert import convert_unet_state_dict
 from lfvdm_tpu_torch.config import CHANNEL_MULT_BY_IMAGE_SIZE, create_model, flagship_config
 from lfvdm_tpu_torch.config import create_model_and_diffusion as t_create
-from lfvdm_tpu_torch.models.unet import attention_blocks
+from lfvdm_tpu_torch.models.nn import GroupNorm32, channel_sums
+from lfvdm_tpu_torch.models.unet import attention_blocks, fused_skip_blocks
 from lfvdm_tpu_torch.ops import attention as ops
 from lfvdm_tpu_torch.utils.convert import unet_state_dict_from_jax
 
@@ -85,7 +88,8 @@ def test_forward_matches_jax(pair):
     out, attns = run_port(model, x, t, kw)
     assert attns is None and out.shape == x.shape and np.abs(ref).max() > 0.1
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
-    assert ops.launch_counts() == {"temporal_rpe_attention": 0, "spatial_attention": 0}
+    assert ops.launch_counts() == {"temporal_rpe_attention": 0, "spatial_attention": 0,
+                                  "skip_conv_stats": 0}
 
 
 def test_forward_with_per_frame_timesteps(pair):
@@ -159,3 +163,95 @@ def test_entry_points_default_to_the_card():
 def test_flagship_model_has_seven_attention_blocks():
     model, _ = t_create(dict(flagship_config(), num_channels=8), device="cpu")
     assert attention_blocks(model) == 7
+    assert fused_skip_blocks(model) == 10
+
+
+# ---------------------------------------------------------------------------
+# The up path: per-part GroupNorm sums and the fused skip projection
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def fused_pair():
+    """The rpe_net model and JAX's output with its fused skip projection on
+    (LFVDM_PALLAS_SKIPCONV=xla: _FusedSkipConv through _fwd_xla on the CPU)."""
+    model = perturbed_port_model(True, seed=3)
+    params = jax_params_from(model)
+    x, t, kw = make_inputs(seed=3)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LFVDM_PALLAS_SKIPCONV", "xla")
+        jmodel, _ = j_create(dict(CFG, use_rpe_net=True))
+        # a fresh function, so that no trace made without the flag is reused
+        ref, _ = jax.jit(lambda p, *a, **k: jmodel.apply(p, *a, **k))(
+            params, jnp.asarray(x), jnp.asarray(t), **{k: jnp.asarray(v) for k, v in kw.items()})
+    unfused, _ = run_jax(params, x, t, kw, True)
+    return model, (x, t, kw), np.asarray(ref), np.asarray(unfused)
+
+
+def test_fused_skip_conv_matches_jax_fused(fused_pair):
+    model, (x, t, kw), ref, unfused = fused_pair
+    assert model.fused_skip_conv and np.abs(ref).max() > 0.1
+    # the flag changes JAX's output, so the comparison tells the two forms apart
+    assert np.abs(ref - unfused).max() > 0
+    ops.reset_launch_counts()
+    out, _ = run_port(model, x, t, kw)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    assert ops.launch_counts()["skip_conv_stats"] == 0  # the CPU runs the plain version
+
+
+def test_unfused_skip_conv_matches_jax_default(fused_pair):
+    model, (x, t, kw), _, unfused = fused_pair
+    model.fused_skip_conv = False
+    try:
+        out, _ = run_port(model, x, t, kw)
+    finally:
+        model.fused_skip_conv = True
+    np.testing.assert_allclose(out.numpy(), unfused, **TOL)
+
+
+def test_fused_config_key():
+    cfg = dict(CFG, fused_skip_conv=False)
+    model, _ = t_create(cfg, device="cpu")
+    assert not model.fused_skip_conv and fused_skip_blocks(model) == 8
+    with pytest.raises(NotImplementedError):
+        t_create(dict(CFG, use_checkpoint=True), device="cpu")
+
+
+def test_channel_sums_and_precomputed_group_norm_match_jax():
+    rng = np.random.default_rng(7)
+    N, C, H, W = 3, 64, 5, 6
+    x = (rng.standard_normal((N, C, H, W)) * 2 + 0.5).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, C).astype(np.float32)
+    bias = rng.standard_normal(C).astype(np.float32)
+    g = rng.standard_normal((N, C, H, W)).astype(np.float32)
+    x_nhwc = jnp.asarray(x.transpose(0, 2, 3, 1))
+
+    js1, js2 = j_channel_sums(x_nhwc)
+    ts1, ts2 = channel_sums(torch.from_numpy(x))
+    np.testing.assert_allclose(ts1.numpy(), np.asarray(js1), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(ts2.numpy(), np.asarray(js2), atol=1e-5, rtol=1e-5)
+
+    def j_norm(sums):
+        out = JGroupNorm32().apply({"params": {"scale": scale, "bias": bias}}, x_nhwc,
+                                   precomputed_sums=sums)
+        return out, jnp.sum(out * jnp.asarray(g.transpose(0, 2, 3, 1)))
+
+    jout, _ = j_norm((js1, js2))
+    jg1, jg2 = jax.grad(lambda s: j_norm(s)[1])((js1, js2))
+
+    gn = GroupNorm32(C)
+    with torch.no_grad():
+        gn.weight.copy_(torch.from_numpy(scale))
+        gn.bias.copy_(torch.from_numpy(bias))
+    sums = (torch.tensor(np.asarray(js1)).requires_grad_(),
+            torch.tensor(np.asarray(js2)).requires_grad_())
+    out = gn(torch.from_numpy(x), precomputed_sums=sums)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout).transpose(0, 3, 1, 2),
+                               atol=1e-5, rtol=1e-5)
+    tg1, tg2 = torch.autograd.grad((out * torch.from_numpy(g)).sum(), sums)
+    for got, ref in ((tg1, jg1), (tg2, jg2)):
+        ref = np.asarray(ref)
+        assert np.abs(ref).max() > 0
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5 * np.abs(ref).max(), rtol=1e-4)
+    # the same statistics as reading x itself, up to the variance formula
+    torch.testing.assert_close(out, gn(torch.from_numpy(x)), atol=1e-5, rtol=1e-5)
