@@ -2,11 +2,14 @@
 
 * ``spatial_attention`` replaces ``lfvdm_tpu/ops/attention.py::_spatial_kernel``:
   softmax(q kᵀ) v over the H·W pixel tokens of each (batch, frame, head).
-  CUDA source: ``csrc/spatial_attention.cu``, a flash-attention forward
-  (64-query blocks, 64-key tiles, online f32 softmax, K/V tiles in shared
-  memory). At the flagship shapes the bf16 work sits under the H100's
-  operations-per-byte balance, so the bound is bytes; the kernel never writes
-  the (D, D) logits, so it moves only q, k, v and out.
+  CUDA source: ``csrc/spatial_attention.cu``, a two-pass flash-attention
+  forward (64-query blocks, 64-key tiles, f32 softmax) in two routes, picked
+  by ``_spatial_route`` from dtype, width and alignment: "mma" (bf16 on the
+  tensor cores through mma.sync, K and V in a cp.async ring in shared
+  memory; the flagship path) and "fma" (f32 tiles and plain FMAs; f32, odd
+  widths, unaligned views). At the flagship shapes the bf16 work sits under
+  the H100's operations-per-byte balance, so the bound is bytes; neither
+  route writes the (D, D) logits, so they move only q, k, v and out.
 
 * ``temporal_rpe_attention`` replaces
   ``lfvdm_tpu/ops/attention.py::_temporal_kernel``: attention over the
@@ -21,7 +24,8 @@
 Each wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors (any other device raises); ``impl="plain"`` asks for the
 plain version on any device, for comparisons. ``<wrapper>.launches`` counts
-kernel launches. The kernels have no backward: an ``autograd.Function``
+kernel launches (``spatial_attention.launches_by_route`` splits its count by
+route). The kernels have no backward: an ``autograd.Function``
 replays the plain version under autograd, as the JAX package's
 ``custom_vjp``s differentiate their einsum oracles.
 
@@ -74,23 +78,40 @@ def spatial_attention_plain(q, k, v):
     return torch.einsum("bthde,bthef->bthdf", attn.float(), v.float()).to(q.dtype)
 
 
+# The spatial kernel's routes and their C entry points (same arguments).
+_SPATIAL_SYMBOLS = {"mma": "lfvdm_spatial_attention_mma", "fma": "lfvdm_spatial_attention"}
+
+
+def _spatial_route(dtype, D, F, tensors) -> str:
+    """The spatial kernel for these inputs: "mma" (bf16 on the tensor cores)
+    for bf16 with F a multiple of 16 and every tensor's data 16-byte aligned,
+    else "fma" (f32 tiles, plain FMAs). A rule on shapes and types, not a
+    fallback on failure; raises for shapes neither route takes."""
+    if D < 1 or not 1 <= F <= MAX_HEAD_DIM:
+        raise ValueError(f"spatial kernel takes D >= 1 and 1 <= F <= {MAX_HEAD_DIM}, "
+                         f"got D={D}, F={F}")
+    if dtype == torch.bfloat16 and F % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return "mma"
+    return "fma"
+
+
 def _spatial_launch(q, k, v):
     _check_kernel_inputs((q, k, v), q.dtype)
     B, T, H, D, F = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v shapes differ: {q.shape}, {k.shape}, {v.shape}")
-    if F > MAX_HEAD_DIM:
-        raise ValueError(f"spatial kernel takes F <= {MAX_HEAD_DIM}, got {F}")
     q, k, v = (t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
-    fn = _build.function("spatial_attention", "lfvdm_spatial_attention",
+    route = _spatial_route(q.dtype, D, F, (q, k, v, out))
+    fn = _build.function("spatial_attention", _SPATIAL_SYMBOLS[route],
                          [_I, _P, _P, _P, _P, _I, _I, _I, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), B * T * H, D, F, stream)
-    _check_launch(rc, "spatial_attention")
+    _check_launch(rc, f"spatial_attention ({route})")
     spatial_attention.launches += 1
+    spatial_attention.launches_by_route[route] += 1
     return out
 
 
@@ -116,6 +137,7 @@ def spatial_attention(q, k, v, *, impl: str = "auto"):
 
 
 spatial_attention.launches = 0
+spatial_attention.launches_by_route = dict.fromkeys(_SPATIAL_SYMBOLS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +228,7 @@ def _replay_plain(plain, saved, g):
 def reset_launch_counts():
     """Set the launch counter of every kernel of the port to 0."""
     spatial_attention.launches = 0
+    spatial_attention.launches_by_route = dict.fromkeys(_SPATIAL_SYMBOLS, 0)
     temporal_rpe_attention.launches = 0
     skip_conv_stats.launches = 0
 

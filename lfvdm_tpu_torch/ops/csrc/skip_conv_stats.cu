@@ -48,7 +48,6 @@
 
 #include <mma.h>
 
-#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -257,17 +256,6 @@ constexpr int kFSmemStages = 2 * (kFStageA + kFStageB) * 2;  // bytes
 constexpr int kFSmemC = kFM * kLdC * 4;                       // bytes
 constexpr int kFSmem = kFSmemStages > kFSmemC ? kFSmemStages : kFSmemC;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Issue the copies of slice k0 into stage (sA, sB): 2 w chunks and 1 x chunk
 // of 16 bytes per thread. Chunks past F, K or P are zero-filled.
 __device__ __forceinline__ void load_stage_async(__nv_bfloat16* sA, __nv_bfloat16* sB,
@@ -283,7 +271,7 @@ __device__ __forceinline__ void load_stage_async(__nv_bfloat16* sA, __nv_bfloat1
     const int r = chunk / 4, c = (chunk % 4) * 8;
     const int f = f0 + r, k = k0 + c;
     const bool valid = f < F && k < K;
-    cp_async16(sA + r * kFLdA + c, valid ? w + (long long)f * K + k : w, valid);
+    lfvdm::cp_async16(sA + r * kFLdA + c, valid ? w + (long long)f * K + k : w, valid);
   }
   {
     const int r = tid / 8, c = (tid % 8) * 8;  // 32 rows x 8 chunks
@@ -291,7 +279,7 @@ __device__ __forceinline__ void load_stage_async(__nv_bfloat16* sA, __nv_bfloat1
     const bool valid = k < K && p < P;
     const __nv_bfloat16* src = x1n;
     if (valid) src = k < c1 ? x1n + (long long)k * P + p : x2n + (long long)(k - c1) * P + p;
-    cp_async16(sB + r * kFLdB + c, src, valid);
+    lfvdm::cp_async16(sB + r * kFLdB + c, src, valid);
   }
 }
 
@@ -328,16 +316,16 @@ __global__ void __launch_bounds__(kFThreads, 2)
   const int K = c1 + c2;
   const int nK = (K + kBK - 1) / kBK;
   load_stage_async(stages, stages + 2 * kFStageA, w, x1n, x2n, f0, 0, p0, F, c1, c2, P);
-  cp_async_commit();
+  lfvdm::cp_async_commit();
   for (int kt = 0; kt < nK; ++kt) {
     const int cur = kt & 1, nxt = cur ^ 1;
     if (kt + 1 < nK) {
       load_stage_async(stages + nxt * kFStageA, stages + 2 * kFStageA + nxt * kFStageB, w, x1n,
                        x2n, f0, (kt + 1) * kBK, p0, F, c1, c2, P);
-      cp_async_commit();
-      cp_async_wait<1>();  // this slice has landed; the next one is in flight
+      lfvdm::cp_async_commit();
+      lfvdm::cp_async_wait<1>();  // this slice has landed; the next one is in flight
     } else {
-      cp_async_wait<0>();
+      lfvdm::cp_async_wait<0>();
     }
     __syncthreads();
     const __nv_bfloat16* sA = stages + cur * kFStageA;
@@ -409,8 +397,6 @@ __global__ void __launch_bounds__(kFThreads, 2)
   }
 }
 
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
-
 // s[n, f] = Σ_pt part[n, pt, f], summed in pixel-tile order. Block (32, 8):
 // x over channels, y strides over the tiles; the eight row sums are then
 // added in a fixed order.
@@ -449,6 +435,7 @@ int launch(const void* x1, const void* x2, const void* w, const void* b, const v
            int nPT, cudaStream_t stream) {
   float* part1 = partial;
   float* part2 = partial + (long long)N * nPT * F;
+  using lfvdm::aligned16;
   const bool fast = std::is_same<T, __nv_bfloat16>::value && P % 8 == 0 && c1 % 8 == 0 &&
                     c2 % 8 == 0 && aligned16(x1) && aligned16(x2) && aligned16(w) &&
                     aligned16(resid) && aligned16(y);

@@ -3,14 +3,20 @@ einsum oracles (``lfvdm_tpu.ops.attention.*_reference``), on the CPU.
 
 On the CPU each wrapper takes its plain version, so these tests pin the
 function every CUDA kernel is held to on the card (chip_smoke.py and
-test_torch_kernels_cuda.py) to the JAX package's definition.
+test_torch_kernels_cuda.py) to the JAX package's definition; the spatial
+plain version is also held against the Pallas kernel itself (interpret
+mode), and the spatial kernel's route rule is checked on CPU tensors.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
+from lfvdm_tpu.ops import attention as jattn
 from lfvdm_tpu.ops.attention import spatial_attention_reference, temporal_rpe_attention_reference
 from lfvdm_tpu_torch.ops import attention as ops
 
@@ -147,3 +153,53 @@ def test_spatial_backward_replays_the_plain_version():
     want = _grads(ops.spatial_attention_plain, args, 3, 11)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """The Pallas kernels in interpret mode (as tests/test_pallas_ops.py runs them)."""
+    monkeypatch.setattr(jattn.pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [16, 96, 128])
+@pytest.mark.parametrize("D", [1, 65, 200])
+def test_spatial_plain_matches_the_pallas_kernel(interpret, D, F, dtype):
+    """The same numpy inputs through the Pallas kernel (lfvdm_tpu
+    ``spatial_attention``, interpret mode) and the port's plain version, at
+    ragged token counts and the widths the tensor-core route takes. f32:
+    summation order only. bf16 (the inputs rounded to bf16 for both): a few
+    bf16 ulps of O(1) outputs."""
+    args = spatial_inputs(D * 1000 + F, B=1, T=1, H=2, D=D, F=F)
+    ref = np.asarray(jattn.spatial_attention(*_jax(args, getattr(jnp, dtype))), np.float32)
+    out = ops.spatial_attention_plain(*_torch(args, getattr(torch, dtype)))
+    assert out.dtype == getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=tol)
+
+
+def _offset_view(shape, dtype):
+    """A contiguous tensor of ``shape`` one element past an aligned start."""
+    return torch.zeros(torch.Size(shape).numel() + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype,F,offset,route", [
+    (torch.bfloat16, 16, False, "mma"),
+    (torch.bfloat16, 96, False, "mma"),
+    (torch.bfloat16, 128, False, "mma"),
+    (torch.bfloat16, 33, False, "fma"),   # not a multiple of 16
+    (torch.bfloat16, 136, False, None),   # wider than either route takes: raises
+    (torch.float32, 96, False, "fma"),
+    (torch.float32, 136, False, None),
+    (torch.bfloat16, 96, True, "fma"),    # one element past an aligned start
+])
+def test_spatial_route(dtype, F, offset, route):
+    shape = (1, 2, 2, 65, F)
+    q = torch.zeros(shape, dtype=dtype)
+    k = _offset_view(shape, dtype) if offset else torch.zeros(shape, dtype=dtype)
+    assert q.data_ptr() % 16 == 0 and (k.data_ptr() % 16 != 0) == offset
+    if route is None:
+        with pytest.raises(ValueError):
+            ops._spatial_route(dtype, 65, F, (q, k, q, q))
+    else:
+        assert ops._spatial_route(dtype, 65, F, (q, k, q, q)) == route

@@ -7,8 +7,8 @@ machine). On a machine with a card, and without JAX, run
 
 (``--noconftest``: the suite's conftest configures JAX). The flagship shapes
 are checked by ``chip_smoke.py``; these cover ragged tiles, short and long
-frame counts, odd widths, the launch counters, the input checks and the
-skip projection's backward.
+frame counts, odd widths, both routes of the spatial kernel, the launch
+counters, the input checks and the skip projection's backward.
 """
 
 import pytest
@@ -66,6 +66,26 @@ def test_temporal_kernel_matches_plain(cuda, dtype, B, H, T, F, D, n_pad):
     assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
 
 
+def _spatial(gen, B, T, H, D, F, dtype):
+    def rnd(scale=1.0):
+        return (torch.randn((B, T, H, D, F), generator=gen, device="cuda") * scale).to(dtype)
+
+    return rnd(F ** -0.5), rnd(), rnd()
+
+
+def _check_spatial(q, k, v, route):
+    """One launch on ``route`` (the kernel's counters), within _tol of the plain version."""
+    before = ops.spatial_attention.launches
+    by_route = dict(ops.spatial_attention.launches_by_route)
+    out = ops.spatial_attention(q, k, v)
+    ref = ops.spatial_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.spatial_attention.launches == before + 1
+    assert ops.spatial_attention.launches_by_route[route] == by_route[route] + 1
+    assert out.dtype == q.dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max().item() <= _tol(q.dtype, ref)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,H,D,F", [
     (1, 1, 1, 1, 4),          # a single token
@@ -74,17 +94,34 @@ def test_temporal_kernel_matches_plain(cuda, dtype, B, H, T, F, D, n_pad):
     (2, 20, 4, 64, 128),      # flagship ds 16
 ])
 def test_spatial_kernel_matches_plain(cuda, dtype, B, T, H, D, F):
-    def rnd(scale=1.0):
-        return (torch.randn((B, T, H, D, F), generator=cuda, device="cuda") * scale).to(dtype)
+    route = "mma" if dtype == torch.bfloat16 and F % 16 == 0 else "fma"
+    _check_spatial(*_spatial(cuda, B, T, H, D, F, dtype), route)
 
-    q, k, v = rnd(F ** -0.5), rnd(), rnd()
-    before = ops.spatial_attention.launches
-    out = ops.spatial_attention(q, k, v)
-    ref = ops.spatial_attention_plain(q, k, v)
-    torch.cuda.synchronize()
-    assert ops.spatial_attention.launches == before + 1
-    assert out.dtype == dtype and out.shape == ref.shape
-    assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+@pytest.mark.parametrize("B,T,H,D,F", [
+    *[(2, 1, 3, D, F) for D in (1, 65, 200) for F in (16, 96, 128)],  # ragged D, each width
+    (2, 20, 4, 256, 96),      # flagship ds 8
+])
+def test_spatial_mma_route_matches_plain(cuda, B, T, H, D, F):
+    _check_spatial(*_spatial(cuda, B, T, H, D, F, torch.bfloat16), "mma")
+
+
+def test_spatial_unaligned_view_takes_the_fma_route(cuda):
+    """bf16 views one element past the start of a row: same function, FMA route."""
+    shape = (1, 2, 2, 70, 32)
+    n = torch.Size(shape).numel()
+    buf = torch.randn(3, n + 1, generator=cuda, device="cuda")
+    buf[0] *= shape[-1] ** -0.5
+    q, k, v = (row[1:].view(shape) for row in buf.to(torch.bfloat16))
+    assert all(t.data_ptr() % 16 for t in (q, k, v))
+    _check_spatial(q, k, v, "fma")
+
+
+def test_spatial_kernel_is_deterministic(cuda):
+    """Two launches of the mma route on the same inputs are bitwise equal."""
+    args = _spatial(cuda, 2, 20, 4, 256, 96, torch.bfloat16)
+    first = ops.spatial_attention(*args)
+    assert torch.equal(first, ops.spatial_attention(*args))
 
 
 def test_non_contiguous_inputs(cuda):
