@@ -18,7 +18,11 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                (B·T, H, D, F) pinned to its flash backend in bf16 and its
                memory-efficient backend in f32 for spatial attention, baddbmm
                for the skip projection's y without its bias and statistics)
-               and the least time the card could take.
+               and the least time the card could take (for temporal
+               attention also its operations at the f32 CUDA-core rate);
+               then one edge shape per kernel fault repaired, in f32 and
+               bf16: temporal attention over 40 frames, spatial attention
+               with 192-wide heads (FMA route).
   4. unet    — the flagship U-Net (128 px, B=2, K=20, bf16, random non-zero
                weights) on the kernel path against the plain path (and the
                same weights in f32), and with the fused skip projection against
@@ -298,6 +302,8 @@ def phase_kernels():
                 if name == "spatial_attention":
                     row["route"] = route
                     row["library"] = f"sdpa {SDPA_BACKENDS[dname]} on (B·T, H, D, F)"
+                else:  # the least time of the same operations on the CUDA cores
+                    row["fma_floor_ms"] = flops / PEAK_FLOPS["float32"] * 1e3
                 emit(row)
                 if not err <= limit:
                     raise RuntimeError(f"{name} {ds} {dname}: max abs err {err} > {limit}")
@@ -309,7 +315,46 @@ def phase_kernels():
         for shape in dict.fromkeys(shapes):  # distinct shapes, in order
             results[("skip_conv_stats",) + shape + (str(dtype).split(".")[-1],)] = \
                 _skip_conv_case(dtype, shape, gen)
+    _edge_cases(gen)
     return results
+
+
+def _edge_cases(gen):
+    """One shape past each kernel's old limit, held against the plain version
+    in both dtypes: temporal attention over 40 frames (two key chunks) and
+    spatial attention with 192-wide heads (the FMA route in two feature
+    chunks). Each must launch its kernel once."""
+    import torch
+
+    from lfvdm_tpu_torch.ops import attention as ops
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        cases = (("temporal_rpe_attention", "T=40",
+                  temporal_inputs(4, 256, 96, dtype, gen, T=40), ops.temporal_rpe_attention,
+                  ops.temporal_rpe_attention_plain),
+                 ("spatial_attention", "F=192", spatial_inputs(2, 256, 192, dtype, gen),
+                  ops.spatial_attention, ops.spatial_attention_plain))
+        for name, edge, args, kernel, plain in cases:
+            with torch.no_grad():
+                before = ops.launch_counts()[name]
+                routes = dict(ops.spatial_attention.launches_by_route)
+                out = kernel(*args)
+                launched = ops.launch_counts()[name] - before
+                fma = ops.spatial_attention.launches_by_route["fma"] - routes["fma"]
+                ref = plain(*args)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                ms = cuda_ms(lambda: kernel(*args), 10, queued=True)
+            limit = 1e-4 if dtype == torch.float32 else 2e-2 * scale
+            emit({"phase": "kernel_edge", "name": name, "edge": edge, "dtype": dname,
+                  "shape": list(args[0].shape), "launches": launched, "max_abs_err": err,
+                  "max_abs_ref": scale, "limit_abs": limit, "ms": ms})
+            if launched != 1 or (name == "spatial_attention" and fma != 1):
+                raise RuntimeError(f"{name} {edge} {dname}: {launched} launches (fma {fma})")
+            if not (torch.isfinite(out.float()).all() and err <= limit):
+                raise RuntimeError(f"{name} {edge} {dname}: max abs err {err} > {limit}")
 
 
 def _skip_conv_case(dtype, shape, gen, B=FLAGSHIP_B, T=FLAGSHIP_K):

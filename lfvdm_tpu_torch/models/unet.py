@@ -39,6 +39,36 @@ from .nn import Conv2d, GroupNorm32, Linear, channel_sums, timestep_embedding
 from .rpe import RPEAttention
 
 
+class Dropout(nn.Module):
+    """Inverted dropout whose masks come from ``self.generator``.
+
+    ``nn.Dropout`` draws from torch's global generator, so a run's seed would
+    not reach it; ``set_dropout_generator`` hands every ResBlock the run's own
+    generator (None: the global one). ``p == 0`` and eval mode draw nothing."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"dropout probability must be in [0, 1], got {p}")
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Draw every dropout mask of ``model`` from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class ResBlock(nn.Module):
     """Residual block with timestep-embedding conditioning."""
 
@@ -55,7 +85,7 @@ class ResBlock(nn.Module):
             Linear(emb_channels, 2 * out_channels if use_scale_shift_norm else out_channels,
                    dtype=dtype))
         self.out_layers = nn.Sequential(
-            GroupNorm32(out_channels), nn.SiLU(), nn.Dropout(dropout),
+            GroupNorm32(out_channels), nn.SiLU(), Dropout(dropout),
             Conv2d(out_channels, out_channels, 3, padding=1, dtype=dtype, zero=True))
         if out_channels != channels:
             self.skip_connection = Conv2d(channels, out_channels, 1, dtype=dtype)

@@ -6,20 +6,24 @@
   forward (64-query blocks, 64-key tiles, f32 softmax) in two routes, picked
   by ``_spatial_route`` from dtype, width and alignment: "mma" (bf16 on the
   tensor cores through mma.sync, K and V in a cp.async ring in shared
-  memory; the flagship path) and "fma" (f32 tiles and plain FMAs; f32, odd
-  widths, unaligned views). At the flagship shapes the bf16 work sits under
+  memory; the flagship path, F ≤ 128) and "fma" (f32 tiles and plain FMAs;
+  f32, odd widths, unaligned views, and any F past 128 in 128-wide feature
+  chunks). At the flagship shapes the bf16 work sits under
   the H100's operations-per-byte balance, so the bound is bytes; neither
   route writes the (D, D) logits, so they move only q, k, v and out.
 
 * ``temporal_rpe_attention`` replaces
-  ``lfvdm_tpu/ops/attention.py::_temporal_kernel``: attention over the
-  T ≤ 32 frames at every pixel site, with iRPE biases on the logits
-  (q·R_k, k·R_qᵀ) and the output (attn·R_v) and the two-group mask rebuilt
-  from a per-frame {0, 1} mask. CUDA source:
-  ``csrc/temporal_rpe_attention.cu``, one thread per (query frame, site),
-  the softmax over S ≤ 32 in registers. The bound is bytes (T is far too
-  short to keep any matrix unit busy); sites on adjacent threads make every
-  q/k/v access one contiguous run.
+  ``lfvdm_tpu/ops/attention.py::_temporal_kernel``: attention over the T
+  frames at every pixel site, with iRPE biases on the logits (q·R_k,
+  k·R_qᵀ) and the output (attn·R_v) and the two-group mask rebuilt from a
+  per-frame {0, 1} mask. CUDA source: ``csrc/temporal_rpe_attention.cu``, on
+  the CUDA cores: a block owns 32 sites (one per lane, so every q/k/v access
+  is one contiguous run) and TQ query frames, each k and v element it loads
+  feeds all TQ frames, the r tables are staged in shared memory, and the
+  f32 logits of all T keys sit in shared memory, so the weights are
+  normalised exactly before they are rounded. T is limited only by that
+  shared memory (``temporal_max_frames()``, 1752 on the H100). The bound is
+  bytes (T is far too short to keep any matrix unit busy).
 
 Each wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors (any other device raises); ``impl="plain"`` asks for the
@@ -48,8 +52,7 @@ from ._common import _DTYPE_CODES, _check_impl, _check_launch, _use_kernel
 from .skipconv import skip_conv_stats
 
 NEG_INF = torch.finfo(torch.float32).min
-MAX_FRAMES = 32      # temporal kernel: frames held in registers
-MAX_HEAD_DIM = 128   # spatial kernel: features per head
+MMA_MAX_HEAD_DIM = 128  # spatial "mma" route: features per head (the "fma" route takes any)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -84,13 +87,13 @@ _SPATIAL_SYMBOLS = {"mma": "lfvdm_spatial_attention_mma", "fma": "lfvdm_spatial_
 
 def _spatial_route(dtype, D, F, tensors) -> str:
     """The spatial kernel for these inputs: "mma" (bf16 on the tensor cores)
-    for bf16 with F a multiple of 16 and every tensor's data 16-byte aligned,
-    else "fma" (f32 tiles, plain FMAs). A rule on shapes and types, not a
-    fallback on failure; raises for shapes neither route takes."""
-    if D < 1 or not 1 <= F <= MAX_HEAD_DIM:
-        raise ValueError(f"spatial kernel takes D >= 1 and 1 <= F <= {MAX_HEAD_DIM}, "
-                         f"got D={D}, F={F}")
-    if dtype == torch.bfloat16 and F % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+    for bf16 with F a multiple of 16 up to 128 and every tensor's data
+    16-byte aligned, else "fma" (f32 tiles, plain FMAs; any F). A rule on
+    shapes and types, not a fallback on failure; raises for empty shapes."""
+    if D < 1 or F < 1:
+        raise ValueError(f"spatial kernel takes D >= 1 and F >= 1, got D={D}, F={F}")
+    if (dtype == torch.bfloat16 and F % 16 == 0 and F <= MMA_MAX_HEAD_DIM
+            and all(t.data_ptr() % 16 == 0 for t in tensors)):
         return "mma"
     return "fma"
 
@@ -161,6 +164,14 @@ def temporal_rpe_attention_plain(q, k, v, r_k, r_q_t, r_v_t, mask):
     return out.to(q.dtype)
 
 
+def temporal_max_frames() -> int:
+    """The most frames the temporal kernel takes (1752 on the H100): its f32
+    logits live in shared memory, 128 bytes per frame per query frame of a
+    block. Builds the kernel on first use."""
+    return _build.function("temporal_rpe_attention",
+                           "lfvdm_temporal_rpe_attention_max_frames", [])()
+
+
 def _temporal_launch(q, k, v, r_k, r_q_t, r_v_t, mask):
     _check_kernel_inputs((q, k, v, r_k, r_q_t, r_v_t), q.dtype)
     B, H, T, F, D = q.shape
@@ -172,8 +183,8 @@ def _temporal_launch(q, k, v, r_k, r_q_t, r_v_t, mask):
         raise ValueError(f"r_v_t must be {(B, H, T, F, T)}, got {r_v_t.shape}")
     if mask.shape != (B, T) or mask.device != q.device:
         raise ValueError(f"mask must be {(B, T)} on {q.device}, got {mask.shape} on {mask.device}")
-    if T > MAX_FRAMES:
-        raise ValueError(f"temporal kernel takes T <= {MAX_FRAMES} frames, got {T}")
+    if T > temporal_max_frames():
+        raise ValueError(f"temporal kernel takes T <= {temporal_max_frames()} frames, got {T}")
     q, k, v, r_k, r_q_t, r_v_t = (t.contiguous() for t in (q, k, v, r_k, r_q_t, r_v_t))
     mask = mask.to(torch.float32).contiguous()
     out = torch.empty_like(q)

@@ -46,10 +46,13 @@
 //   memory through ldmatrix, and the second q kᵀ and the exponentials of
 //   both passes are the price of rounding where the reference rounds.
 //   wgmma, which reads B from shared memory directly, is the next step.
-// * lfvdm_spatial_attention — f32, and bf16 at other widths or alignments:
-//   the first version, plain FMAs on f32 tiles in shared memory. 256 threads
-//   give each query row four threads, each holding 16 logits and F/4 output
-//   columns in registers. It runs far above its bound.
+// * lfvdm_spatial_attention — f32, bf16 at other widths or alignments, and
+//   any F above 128: the first version, plain FMAs on f32 tiles in shared
+//   memory. 256 threads give each query row four threads, each holding 16
+//   logits and up to 32 output columns in registers. Past F = 128 the logits
+//   sum over 128-wide feature chunks of Q and K staged in turn, and a third
+//   grid dimension gives each block 128 columns of v and out, so shared
+//   memory stays at most 113 KB for any F. It runs far above its bound.
 
 #include <math.h>
 
@@ -64,19 +67,23 @@ constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
 constexpr int kLanesPerRow = kThreads / kBlockQ;   // 4
 constexpr int kColsS = kBlockK / kLanesPerRow;     // 16 logits per thread
-constexpr int kMaxF = 128;                         // the wrapper rejects more
-constexpr int kColsO = kMaxF / kLanesPerRow;       // 32 outputs per thread
+constexpr int kChunkF = 128;                       // features staged at a time
+constexpr int kColsO = kChunkF / kLanesPerRow;     // 32 outputs per thread
 
+// Q, K and V chunks of (64, min(F, 128) + 1) floats, then the weights.
 __host__ __device__ constexpr int smem_floats(int F) {
-  return 3 * kBlockQ * (F + 1) + kBlockQ * (kBlockK + 1);
+  return 3 * kBlockQ * ((F < kChunkF ? F : kChunkF) + 1) + kBlockQ * (kBlockK + 1);
 }
 
+// Any F: the logits sum over 128-wide feature chunks of q and k staged in
+// turn, and blockIdx.z picks the 128 output columns (of v and out) this block
+// computes. At F <= 128 (one chunk) Q is staged once.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     spatial_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, T* __restrict__ out, int D, int F) {
   extern __shared__ float smem[];
-  const int ld = F + 1;  // padded rows: the 8 rows a warp reads hit 8 banks
+  const int ld = (F < kChunkF ? F : kChunkF) + 1;  // padded rows: 8 rows of a warp hit 8 banks
   float* sQ = smem;
   float* sK = sQ + kBlockQ * ld;
   float* sV = sK + kBlockK * ld;
@@ -87,33 +94,39 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = tid % kLanesPerRow;
   const long long base = (long long)blockIdx.x * D * F;
   const int q0 = blockIdx.y * kBlockQ;
+  const int c0 = blockIdx.z * kChunkF;                                  // output columns
+  const int wo = F - c0 < kChunkF ? F - c0 : kChunkF;
+  const bool one_chunk = F <= kChunkF;
 
-  for (int i = tid; i < kBlockQ * F; i += kThreads) {
-    const int r = i / F, f = i - r * F;
-    sQ[r * ld + f] = (q0 + r < D) ? lfvdm::load_f32(q + base + (long long)(q0 + r) * F + f) : 0.f;
-  }
-
-  // Stage key tile k0 (and its values) in shared memory.
-  auto load_tile = [&](int k0, bool with_v) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBlockK * F; i += kThreads) {
-      const int r = i / F, f = i - r * F;
-      const bool in = k0 + r < D;
-      const long long g = base + (long long)(k0 + r) * F + f;
-      sK[r * ld + f] = in ? lfvdm::load_f32(k + g) : 0.f;
-      if (with_v) sV[r * ld + f] = in ? lfvdm::load_f32(v + g) : 0.f;
+  // Rows [r0, r0 + 64) and columns [f0, f0 + w) of one (D, F) matrix; zeros
+  // past D.
+  auto stage = [&](float* dst, const T* src, int r0, int f0, int w) {
+    for (int i = tid; i < kBlockK * w; i += kThreads) {
+      const int r = i / w, f = i - r * w;
+      dst[r * ld + f] =
+          r0 + r < D ? lfvdm::load_f32(src + base + (long long)(r0 + r) * F + f0 + f) : 0.f;
     }
-    __syncthreads();
   };
+  if (one_chunk) stage(sQ, q, q0, 0, F);
+
   // This thread's 16 logits of tile k0: columns lane + 4j; -inf past D.
-  auto logits = [&](int k0, float* s) {
+  // With ``with_v`` it also stages the tile's V columns [c0, c0 + wo).
+  auto logits = [&](int k0, float* s, bool with_v) {
 #pragma unroll
     for (int j = 0; j < kColsS; ++j) s[j] = 0.f;
-    for (int f = 0; f < F; ++f) {
-      const float qf = sQ[row * ld + f];
+    for (int f0 = 0; f0 < F; f0 += kChunkF) {
+      const int w = F - f0 < kChunkF ? F - f0 : kChunkF;
+      __syncthreads();  // the previous chunk's (and tile's) readers are done
+      if (!one_chunk) stage(sQ, q, q0, f0, w);
+      stage(sK, k, k0, f0, w);
+      if (with_v && f0 == 0) stage(sV, v, k0, c0, wo);
+      __syncthreads();
+      for (int f = 0; f < w; ++f) {
+        const float qf = sQ[row * ld + f];
 #pragma unroll
-      for (int j = 0; j < kColsS; ++j)
-        s[j] = fmaf(qf, sK[(lane + kLanesPerRow * j) * ld + f], s[j]);
+        for (int j = 0; j < kColsS; ++j)
+          s[j] = fmaf(qf, sK[(lane + kLanesPerRow * j) * ld + f], s[j]);
+      }
     }
 #pragma unroll
     for (int j = 0; j < kColsS; ++j)
@@ -126,8 +139,7 @@ __global__ void __launch_bounds__(kThreads)
   float row_sum = 0.f;
   float s[kColsS];
   for (int k0 = 0; k0 < D; k0 += kBlockK) {
-    load_tile(k0, false);
-    logits(k0, s);
+    logits(k0, s, false);
     float tile_max = -INFINITY;
 #pragma unroll
     for (int j = 0; j < kColsS; ++j) tile_max = fmaxf(tile_max, s[j]);
@@ -149,8 +161,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < kColsO; ++i) o[i] = 0.f;
   for (int k0 = 0; k0 < D; k0 += kBlockK) {
-    load_tile(k0, true);
-    logits(k0, s);
+    logits(k0, s, true);
 #pragma unroll
     for (int j = 0; j < kColsS; ++j)
       sP[row * (kBlockK + 1) + lane + kLanesPerRow * j] =
@@ -161,17 +172,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kColsO; ++i) {
         const int f = lane + kLanesPerRow * i;
-        if (f < F) o[i] = fmaf(p, sV[c * ld + f], o[i]);
+        if (f < wo) o[i] = fmaf(p, sV[c * ld + f], o[i]);
       }
     }
   }
 
   if (q0 + row < D) {
-    T* dst = out + base + (long long)(q0 + row) * F;
+    T* dst = out + base + (long long)(q0 + row) * F + c0;
 #pragma unroll
     for (int i = 0; i < kColsO; ++i) {
       const int f = lane + kLanesPerRow * i;
-      if (f < F) lfvdm::store_f32(dst + f, o[i]);
+      if (f < wo) lfvdm::store_f32(dst + f, o[i]);
     }
   }
 }
@@ -183,7 +194,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int N, int D,
   cudaError_t err = cudaFuncSetAttribute(spatial_attention_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N, (D + kBlockQ - 1) / kBlockQ);
+  const dim3 grid(N, (D + kBlockQ - 1) / kBlockQ, (F + kChunkF - 1) / kChunkF);
   spatial_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), D, F);
@@ -465,7 +476,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int N, int D,
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int lfvdm_spatial_attention(int dtype, const void* q, const void* k, const void* v,
                                        void* out, int N, int D, int F, void* stream) {
-  if (N < 1 || D < 1 || F < 1 || F > kMaxF || (D + kBlockQ - 1) / kBlockQ > 65535)
+  if (N < 1 || D < 1 || F < 1 || (D + kBlockQ - 1) / kBlockQ > 65535 ||
+      (F + kChunkF - 1) / kChunkF > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == lfvdm::kFloat32) return launch<float>(q, k, v, out, N, D, F, s);

@@ -16,7 +16,9 @@ The host loop keeps the JAX package's cadence: mask sampling on a numpy
 generator, timestep importance sampling with loss-aware updates, log, save
 and sample intervals with quartile loss KVs, the ``DIFFUSION_TRAINING_TEST``
 early exit, and a checkpoint at the next step boundary on SIGTERM/SIGINT.
-Device noise comes from a ``torch.Generator`` on the model's device.
+Device noise comes from a ``torch.Generator`` on the model's device, and the
+ResBlocks' dropout masks from a second one, both seeded from ``seed`` (the
+JAX step derives its dropout key from the run's key).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from torch import nn
 
 from ..diffusion.gaussian import GaussianDiffusion
 from ..diffusion.resample import LossAwareSampler, ScheduleSampler, UniformSampler
+from ..models.unet import set_dropout_generator
 from ..utils.logger import logger
 from . import checkpoint as ckpt_lib
 from .masks import sample_training_batch
@@ -304,6 +307,10 @@ class TrainLoop:
                           else [float(x) for x in str(ema_rate).split(",")])
         self.host_rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # A stream of its own for the dropout masks, derived from the seed.
+        dropout_seed = int(np.random.SeedSequence([seed, 1]).generate_state(1, np.uint64)[0])
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(dropout_seed)
+        set_dropout_generator(model, self.dropout_generator)
 
         if init_params is not None:
             self._warm_start(init_params)

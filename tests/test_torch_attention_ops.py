@@ -178,6 +178,39 @@ def test_spatial_plain_matches_the_pallas_kernel(interpret, D, F, dtype):
     np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [192, 256])
+def test_spatial_plain_matches_the_pallas_kernel_on_wide_heads(interpret, F, dtype):
+    """Head widths past the tensor-core route's 128, which the card sends to
+    the FMA route in feature chunks: the port's plain version against the
+    Pallas kernel (interpret mode) on the same numpy inputs. Tolerances as
+    above."""
+    args = spatial_inputs(F, B=1, T=1, H=2, D=65, F=F)
+    ref = np.asarray(jattn.spatial_attention(*_jax(args, getattr(jnp, dtype))), np.float32)
+    out = ops.spatial_attention_plain(*_torch(args, getattr(torch, dtype)))
+    assert out.dtype == getattr(torch, dtype)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [20, 33, 40])
+def test_temporal_plain_matches_the_pallas_kernel(interpret, T, dtype):
+    """The port's temporal plain version against the Pallas ``_temporal_kernel``
+    (interpret mode) at the flagship frame count and past one and two of the
+    card kernel's 32-key chunks, with padding frames in one sample. f32:
+    summation order only. bf16 (the inputs rounded to bf16 for both, the
+    weights rounded where both round them): a few bf16 ulps of O(1) outputs."""
+    args = temporal_inputs(T, B=2, H=2, T=T, F=12, D=9)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = np.asarray(jattn.temporal_rpe_attention(*_jax(args[:6], jdt), jnp.asarray(args[6])),
+                     np.float32)
+    out = ops.temporal_rpe_attention_plain(*_torch(args[:6], tdt), torch.from_numpy(args[6]))
+    assert out.dtype == tdt
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=tol, rtol=tol)
+
+
 def _offset_view(shape, dtype):
     """A contiguous tensor of ``shape`` one element past an aligned start."""
     return torch.zeros(torch.Size(shape).numel() + 1, dtype=dtype)[1:].view(shape)
@@ -188,10 +221,12 @@ def _offset_view(shape, dtype):
     (torch.bfloat16, 96, False, "mma"),
     (torch.bfloat16, 128, False, "mma"),
     (torch.bfloat16, 33, False, "fma"),   # not a multiple of 16
-    (torch.bfloat16, 136, False, None),   # wider than either route takes: raises
+    (torch.bfloat16, 136, False, "fma"),  # wider than the mma route takes
     (torch.float32, 96, False, "fma"),
-    (torch.float32, 136, False, None),
+    (torch.float32, 136, False, "fma"),
     (torch.bfloat16, 96, True, "fma"),    # one element past an aligned start
+    (torch.bfloat16, 384, False, "fma"),
+    (torch.float32, 0, False, None),      # no features: raises
 ])
 def test_spatial_route(dtype, F, offset, route):
     shape = (1, 2, 2, 65, F)

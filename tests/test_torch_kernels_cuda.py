@@ -52,8 +52,12 @@ def _temporal(gen, B, H, T, F, D, dtype, n_pad):
 @pytest.mark.parametrize("B,H,T,F,D,n_pad", [
     (1, 1, 1, 8, 5, 0),       # one frame, ragged sites
     (2, 3, 7, 33, 70, 2),     # odd widths, ragged tiles, padding frames
-    (1, 2, 32, 16, 40, 5),    # the most frames the kernel holds
+    (1, 2, 32, 16, 40, 5),    # one full chunk of 32 keys
+    (1, 2, 33, 24, 40, 3),    # one key past a chunk, ragged sites
+    (2, 1, 40, 33, 70, 4),    # two key chunks, odd width, ragged sites
+    (1, 3, 64, 16, 5, 7),     # two full key chunks, fewer sites than a warp
     (2, 4, 20, 96, 256, 2),   # flagship ds 8
+    (2, 4, 20, 128, 64, 2),   # flagship ds 16
 ])
 def test_temporal_kernel_matches_plain(cuda, dtype, B, H, T, F, D, n_pad):
     args = _temporal(cuda, B, H, T, F, D, dtype, n_pad)
@@ -64,6 +68,14 @@ def test_temporal_kernel_matches_plain(cuda, dtype, B, H, T, F, D, n_pad):
     assert ops.temporal_rpe_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == ref.shape
     assert (out.float() - ref.float()).abs().max().item() <= _tol(dtype, ref)
+
+
+def test_temporal_kernel_is_deterministic(cuda):
+    """No atomics: two launches on the same inputs are bitwise equal."""
+    for T, D in ((20, 256), (40, 70)):
+        args = _temporal(cuda, 2, 4, T, 96, D, torch.bfloat16, 2)
+        first = ops.temporal_rpe_attention(*args)
+        assert torch.equal(first, ops.temporal_rpe_attention(*args))
 
 
 def _spatial(gen, B, T, H, D, F, dtype):
@@ -106,6 +118,18 @@ def test_spatial_mma_route_matches_plain(cuda, B, T, H, D, F):
     _check_spatial(*_spatial(cuda, B, T, H, D, F, torch.bfloat16), "mma")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,D,F", [
+    (1, 2, 2, 65, 136),       # one column past a feature chunk, ragged token tile
+    (1, 1, 3, 70, 192),       # a chunk and a half
+    (2, 1, 2, 64, 256),       # two full chunks
+    (1, 2, 1, 130, 384),      # three chunks, three token tiles
+])
+def test_spatial_wide_heads_take_the_fma_route(cuda, dtype, B, T, H, D, F):
+    """F > 128 (the JAX kernel takes any F): the FMA route, in feature chunks."""
+    _check_spatial(*_spatial(cuda, B, T, H, D, F, dtype), "fma")
+
+
 def test_spatial_unaligned_view_takes_the_fma_route(cuda):
     """bf16 views one element past the start of a row: same function, FMA route."""
     shape = (1, 2, 2, 70, 32)
@@ -139,12 +163,24 @@ def test_plain_impl_launches_nothing(cuda):
 
 
 def test_out_of_range_inputs_raise(cuda):
+    """T = 33 and F = 136, once past the kernels' limits, now launch once each
+    and match the plain versions; fp16 and too many frames still raise."""
     args = _temporal(cuda, 1, 1, 33, 8, 8, torch.float32, 0)
+    before = ops.temporal_rpe_attention.launches
+    out = ops.temporal_rpe_attention(*args)
+    assert ops.temporal_rpe_attention.launches == before + 1
+    ref = ops.temporal_rpe_attention_plain(*args)
+    assert (out - ref).abs().max().item() <= _tol(torch.float32, ref)
+    q = torch.randn(1, 1, 1, 8, 136, generator=cuda, device="cuda")
+    _check_spatial(q * 136 ** -0.5, q, q, "fma")
+    n = ops.temporal_max_frames()  # the kernel's shared memory is full
+    assert n >= 1024
+    most = _temporal(cuda, 1, 1, n, 2, 3, torch.float32, 100)
+    ref = ops.temporal_rpe_attention_plain(*most)
+    assert (ops.temporal_rpe_attention(*most) - ref).abs().max().item() <= _tol(torch.float32, ref)
+    big = _temporal(cuda, 1, 1, n + 1, 1, 1, torch.float32, 0)
     with pytest.raises(ValueError):
-        ops.temporal_rpe_attention(*args)
-    q = torch.randn(1, 1, 1, 8, 136, device="cuda")
-    with pytest.raises(ValueError):
-        ops.spatial_attention(q, q, q)
+        ops.temporal_rpe_attention(*big)
     with pytest.raises(TypeError):
         h = q[..., :64].half()
         ops.spatial_attention(h, h, h)

@@ -29,6 +29,7 @@ from lfvdm_tpu_torch.config import create_model_and_diffusion as t_create
 from lfvdm_tpu_torch.data import datasets as t_datasets
 from lfvdm_tpu_torch.diffusion import losses as t_losses
 from lfvdm_tpu_torch.diffusion import resample as t_resample
+from lfvdm_tpu_torch.models.unet import Dropout
 from lfvdm_tpu_torch.ops import attention as ops
 from lfvdm_tpu_torch.training import checkpoint as ckpt
 from lfvdm_tpu_torch.training import masks as t_masks
@@ -478,6 +479,57 @@ def test_train_loop_steps_saves_resumes_and_loads_raw(tmp_path, capsys):
     assert torch.equal(ema["out.2.weight"], saved["ema"]["0.9999"]["out.2.weight"])
     model, _ = t_create(CFG, device="cpu")
     model.load_state_dict(raw)  # a plain state_dict of the model
+
+
+def _dropout_masks(tmp_path, seed, dropout=0.5):
+    """The first two dropout masks of a TrainLoop's model (ResBlock order),
+    drawn on a batch of ones, and one train-mode forward's output (every
+    weight perturbed, so the zero-initialised layers pass the dropout on)."""
+    model, diffusion = t_create(dict(CFG, dropout=dropout), device="cpu", seed=1)
+    gen = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    loop = TrainLoop(model=model, diffusion=diffusion, data=_data(), batch_size=B, max_frames=K,
+                     lr=1e-3, checkpoint_dir=str(tmp_path), seed=seed)
+    drops = [m for m in loop.model.modules() if isinstance(m, Dropout)]
+    assert drops and all(d.generator is loop.dropout_generator for d in drops)
+    loop.model.train()
+    masks = [drops[0](torch.ones(4096)), drops[1](torch.ones(4096))]
+    batch, t, _, noise = step_inputs(dict(zip(("batch", "t", "w", "noise"), make_batch(3))))
+    with torch.no_grad():
+        x_t = diffusion.q_sample(batch["x0"], t, noise=noise)
+        out, _ = loop.model(x_t, t, **batch)
+    return masks, out
+
+
+def test_dropout_masks_follow_the_train_loop_seed(tmp_path):
+    """ResBlock dropout draws from the loop's seeded generator: one seed gives
+    the same masks (and the same train-mode forward) twice, two seeds differ.
+    Masks keep 1 / (1 - p) or 0, about half of each at p = 0.5."""
+    a, out_a = _dropout_masks(tmp_path, seed=0)
+    again, out_again = _dropout_masks(tmp_path, seed=0)
+    other, out_other = _dropout_masks(tmp_path, seed=1)
+    for m, m2 in zip(a, again):
+        assert torch.equal(m, m2)
+        assert set(m.unique().tolist()) <= {0.0, 2.0} and 0.4 < (m > 0).float().mean() < 0.6
+    assert not torch.equal(a[0], a[1])  # successive draws move the stream
+    assert not any(torch.equal(m, o) for m, o in zip(a, other))
+    assert torch.equal(out_a, out_again) and not torch.equal(out_a, out_other)
+
+
+def test_zero_dropout_draws_nothing_and_changes_nothing():
+    """dropout = 0 (the default and the flagship): the module is the identity
+    in train mode and its generator does not move, so the f32 parity with
+    lfvdm_tpu (test_loss_and_gradients_match_jax) is unaffected."""
+    gen = torch.Generator().manual_seed(0)
+    state = gen.get_state()
+    d = Dropout(0.0).train()
+    d.generator = gen
+    x = torch.randn(3, 5)
+    assert d(x) is x and torch.equal(gen.get_state(), state)
+    model, _ = t_create(CFG, device="cpu")
+    assert all(m.p == 0.0 for m in model.modules() if isinstance(m, Dropout))
 
 
 def test_train_loop_warm_start_checks_names_and_shapes(tmp_path):
