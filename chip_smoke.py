@@ -11,7 +11,8 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                flagship shapes (ds 8 and ds 16), in f32 (TF32 off) and bf16,
                with the spatial kernel's route (bf16: "mma", f32: "fma");
                the skip projection (skip_conv_stats) at every distinct flagship
-               up-path shape in bf16 and at ds 1 and ds 16 in f32: errors, and
+               up-path shape in bf16 (route "bulk") and at ds 1 and ds 16 in
+               f32 (route "generic"), with its launch plan: errors, and
                CUDA-event device times (launches queued behind a spin kernel)
                of the kernel, the plain version, one PyTorch library call
                where one exists (a yardstick only: SDPA on the 4-D view
@@ -27,13 +28,14 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                weights) on the kernel path against the plain path (and the
                same weights in f32), and with the fused skip projection against
                the unfused form (bf16 and f32), timed both ways; 7 + 7 + 10
-               launches per forward, every spatial launch on the "mma" route;
+               launches per forward, every spatial launch on the "mma" route
+               and every skip projection on the "bulk" route;
                then a torch.profiler breakdown of one forward's device time.
   5. sample  — the sampling path: VideoSampler.sample_video over a 40-frame
                video (autoreg, 3 windows of K=20, ancestral, 50 steps), then one
                DDIM (ddim25) and one DPM-Solver++ (dpm20) window. Launch counts
                are reset just before and read just after; each must equal
-               7 + 7 + 10 per model call.
+               7 + 7 + 10 per model call, on the same routes.
   6. train   — the training path: TrainLoop on the flagship config (B=2, K=20,
                bf16) over the synthetic dataset at 128 px: warm-up steps, then
                timed steps (finite losses, parameters move, the EMA formula,
@@ -82,12 +84,19 @@ PER_FORWARD = {"temporal_rpe_attention": 7, "spatial_attention": 7, "skip_conv_s
 # The spatial kernel's route by dtype (ops/attention.py _spatial_route at the
 # flagship widths), and the SDPA backend its yardstick is pinned to.
 SPATIAL_ROUTES = {"bfloat16": "mma", "float32": "fma"}
+# The skip projection's route by dtype (ops/skipconv.py plan at the flagship
+# widths); every launch of the main paths is bf16, so "bulk".
+SKIP_ROUTES = {"bfloat16": "bulk", "float32": "generic"}
 SDPA_BACKENDS = {"bfloat16": "FLASH_ATTENTION", "float32": "EFFICIENT_ATTENTION"}
 REPLACES = {
     "temporal_rpe_attention": "lfvdm_tpu/ops/attention.py:210 (_temporal_pallas -> _temporal_kernel :143)",
     "spatial_attention": "lfvdm_tpu/ops/attention.py:106 (_spatial_pallas -> _spatial_kernel :81)",
     "skip_conv_stats": "lfvdm_tpu/ops/skipconv.py:88 (_fwd_pallas -> _kernel :65)",
 }
+# Kernels with more than one route, and the route every launch of the main
+# paths must take.
+ROUTED = {"spatial_attention": SPATIAL_ROUTES["bfloat16"],
+          "skip_conv_stats": SKIP_ROUTES["bfloat16"]}
 SOURCES = {"temporal_rpe_attention": "lfvdm_tpu_torch/ops/csrc/temporal_rpe_attention.cu",
            "spatial_attention": "lfvdm_tpu_torch/ops/csrc/spatial_attention.cu",
            "skip_conv_stats": "lfvdm_tpu_torch/ops/csrc/skip_conv_stats.cu"}
@@ -379,8 +388,12 @@ def _skip_conv_case(dtype, shape, gen, B=FLAGSHIP_B, T=FLAGSHIP_K):
     xcat = torch.cat([x1, x2], dim=1).reshape(N, K, P)
     wb = w.expand(N, F, K)
     r3 = resid.reshape(N, F, P)
+    plan = skipconv.plan(N, c1, c2, F, P, dtype, sms=skipconv._sm_count(0))
     with torch.no_grad():
+        routes = dict(skipconv.skip_conv_stats.launches_by_route)
         y, s1, s2 = skipconv.skip_conv_stats(*args)
+        route = next((r for r, n in skipconv.skip_conv_stats.launches_by_route.items()
+                      if n != routes[r]), None)
         ry, r1, r2 = skipconv.skip_conv_stats_plain(*args)
         torch.cuda.synchronize()
         errs = [(y.float() - ry.float()).abs().max().item(), (s1 - r1).abs().max().item(),
@@ -397,13 +410,17 @@ def _skip_conv_case(dtype, shape, gen, B=FLAGSHIP_B, T=FLAGSHIP_K):
     rel = (1e-5, 1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-3, 2e-3)
     limits = [r * sc for r, sc in zip(rel, scales)]
     row = {"phase": "kernel", "name": "skip_conv_stats", "ds": level, "dtype": dname,
-           "c1": c1, "c2": c2, "F": F, "M": N * P, "err_y": errs[0], "err_s1": errs[1],
+           "c1": c1, "c2": c2, "F": F, "M": N * P, "route": route, "plan": plan._asdict(),
+           "err_y": errs[0], "err_s1": errs[1],
            "err_s2": errs[2], "max_abs_ref": scales, "limit_abs": limits,
            "max_abs_err": errs[0], "ms": ms, "unqueued_ms": unqueued_ms, "plain_ms": plain_ms,
            "library_ms": lib_ms,
            "library": "baddbmm(resid, W, cat(x1, x2)): y without bias and statistics",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
     emit(row)
+    if route != SKIP_ROUTES[dname] or plan.route != route:
+        raise RuntimeError(f"skip_conv_stats {shape} {dname} took route {route} (plan "
+                           f"{plan.route}), expected {SKIP_ROUTES[dname]}")
     if not finite:
         raise RuntimeError(f"skip_conv_stats {shape} {dname}: non-finite output")
     for what, e, lim in zip(("y", "s1", "s2"), errs, limits):
@@ -440,7 +457,7 @@ def kernels_line(results, launches_by_path, routes_by_path):
     forward in bf16 (attention: 3 launches at ds 8 + 4 at ds 16; skip
     projection: its 10 up-path shapes). ``launches`` is the count of the
     training path (this slice's main path); the sampling path's is beside it,
-    and the spatial kernel's counts by route on both."""
+    and the spatial and skip-projection kernels' counts by route on both."""
     entries = []
     for name in KERNEL_NAMES:
         if name == "skip_conv_stats":
@@ -466,8 +483,10 @@ def kernels_line(results, launches_by_path, routes_by_path):
             "library_ms": None if None in lib else sum(x * n for x, (_, n) in zip(lib, rows)),
             "unit": unit,
         })
+        if name in ROUTED:
+            entries[-1]["launches_by_route"] = {path: r[name] for path, r in routes_by_path.items()}
         if name == "spatial_attention":
-            entries[-1].update(launches_by_route=routes_by_path, library=rows[0][0]["library"])
+            entries[-1]["library"] = rows[0][0]["library"]
     return {"kernels": entries}
 
 
@@ -568,7 +587,7 @@ def phase_unet(cfg, model):
         return ((a - b).norm() / b.norm()).item()
 
     row = {"phase": "unet", "shape": list(x.shape), "dtype": "bfloat16",
-           "launches_per_forward": counts, "spatial_routes_per_forward": routes,
+           "launches_per_forward": counts, "routes_per_forward": routes,
            "rel_l2_vs_plain": rel(out, ref),
            "f32_rel_l2_vs_plain": rel(out32, ref32), "bf16_plain_vs_f32_plain": rel(ref, ref32),
            "fused_vs_unfused_rel_l2": rel(out, unfused),
@@ -677,7 +696,7 @@ def phase_sample(cfg, model, diffusion):
     row = {"phase": "sample_video", "sampler": "ancestral", "respacing": "50",
            "video": [B, T, C, S, S], "windows": len(used),
            "window_frames": [len(o[0]) + len(lt[0]) for o, lt in used],
-           "model_calls": calls, "launches": launches, "spatial_routes": routes, "wall_s": wall,
+           "model_calls": calls, "launches": launches, "routes": routes, "wall_s": wall,
            "s_per_window": wall / len(used), "ms_per_model_call": wall / calls * 1e3}
     emit(row)
     _check_video(samples, video, n_obs, used, T)
@@ -704,7 +723,7 @@ def phase_sample(cfg, model, diffusion):
         wall = time.perf_counter() - t0
         launches, routes = read_counts()
         r = {"phase": "sample_window", "sampler": name, "respacing": spacing,
-             "model_calls": s.model_calls, "launches": launches, "spatial_routes": routes,
+             "model_calls": s.model_calls, "launches": launches, "routes": routes,
              "wall_s": wall,
              "ms_per_model_call": wall / s.model_calls * 1e3,
              "max_abs": out.abs().max().item()}
@@ -714,7 +733,7 @@ def phase_sample(cfg, model, diffusion):
         _check_launches(launches, routes, s.model_calls)
         rows.append(r)
     emit(_profile_window(cfg, model, x0, fi, obs, gen))
-    return row["launches"], row["spatial_routes"], rows
+    return row["launches"], row["routes"], rows
 
 
 SYNC_EVENTS = ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -770,21 +789,23 @@ def _check_video(samples, video, n_obs, used, T):
 
 
 def read_counts():
-    """Launch counts by kernel, and the spatial kernel's by route."""
+    """Launch counts by kernel, and the routed kernels' counts by route."""
     from lfvdm_tpu_torch.ops import attention as ops
 
-    return ops.launch_counts(), dict(ops.spatial_attention.launches_by_route)
+    return ops.launch_counts(), {name: dict(getattr(ops, name).launches_by_route)
+                                 for name in ROUTED}
 
 
 def _check_launches(launches, routes, calls):
     """``PER_FORWARD`` launches per model call, every spatial one on the bf16
-    "mma" route."""
+    "mma" route and every skip projection on the bf16 "bulk" route."""
     want = {name: n * calls for name, n in PER_FORWARD.items()}
     if launches != want:
         raise RuntimeError(f"launch counts {launches} != {PER_FORWARD} per model call ({want})")
-    want_routes = {"mma": want["spatial_attention"], "fma": 0}
+    want_routes = {name: {r: want[name] if r == ROUTED[name] else 0 for r in routes[name]}
+                   for name in ROUTED}
     if routes != want_routes:
-        raise RuntimeError(f"spatial launches by route {routes} != {want_routes}")
+        raise RuntimeError(f"launches by route {routes} != {want_routes}")
 
 
 # ---------------------------------------------------------------------------
@@ -889,7 +910,7 @@ def phase_train(ckpt_dir):
            "warmup_steps": TRAIN_WARMUP, "warmup_s": warm_s, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in step_s],
            "mean_ms_per_step": sum(step_s) / len(step_s) * 1e3,
            "peak_mem_gib": peak / 2**30, "host_batch_prep_ms": prep_ms, "losses": losses, "param_max_change": moved,
-           "ema_formula_max_abs_err": ema_err, "launches": launches, "spatial_routes": routes,
+           "ema_formula_max_abs_err": ema_err, "launches": launches, "routes": routes,
            "microbatch_launches": micro_launches,
            "microbatch_loss": m2["weighted_loss"].item(),
            "nan_step_skipped": m_nan["skipped_nonfinite"].item(),

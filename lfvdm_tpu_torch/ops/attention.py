@@ -29,7 +29,7 @@ Each wrapper takes the plain version for CPU tensors and launches its kernel
 for CUDA tensors (any other device raises); ``impl="plain"`` asks for the
 plain version on any device, for comparisons. ``<wrapper>.launches`` counts
 kernel launches (``spatial_attention.launches_by_route`` splits its count by
-route). The kernels have no backward: an ``autograd.Function``
+route, as ``skip_conv_stats.launches_by_route`` does). The kernels have no backward: an ``autograd.Function``
 replays the plain version under autograd, as the JAX package's
 ``custom_vjp``s differentiate their einsum oracles.
 
@@ -242,6 +242,7 @@ def reset_launch_counts():
     spatial_attention.launches_by_route = dict.fromkeys(_SPATIAL_SYMBOLS, 0)
     temporal_rpe_attention.launches = 0
     skip_conv_stats.launches = 0
+    skip_conv_stats.launches_by_route = dict.fromkeys(skip_conv_stats.launches_by_route, 0)
 
 
 def launch_counts() -> dict:

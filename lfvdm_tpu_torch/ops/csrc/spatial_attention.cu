@@ -229,31 +229,10 @@ struct Shape {
   static constexpr int kMinBlocks = 3 * (kSmemBytes + kSmemReserved) <= kSmemPerSM ? 3 : 2;
 };
 
-// Four 8x8 bf16 matrices; lane l gives the row address of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(lfvdm::smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(lfvdm::smem_u32(p)));
-}
-
-// d += a·b for one 16x8 tile over a depth of 16: bf16 inputs, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const unsigned*>(&h);
-}
+using lfvdm::ldmatrix_x4;        // csrc/common.cuh
+using lfvdm::ldmatrix_x4_trans;
+using lfvdm::mma_bf16;
+using lfvdm::pack_bf16;
 
 // Copy rows [r0, r0 + 64) of one (D, F) matrix into a staged tile; rows past
 // D are zero-filled.

@@ -49,7 +49,8 @@ def test_kernels_line_has_every_key():
     for shp in chip_smoke.SKIP_SHAPES:
         results[("skip_conv_stats",) + shp + ("bfloat16",)] = _row("skip_conv_stats", shp[0])
     launches = {n: 7 * 6 for n in chip_smoke.KERNEL_NAMES}
-    routes = {"mma": 42, "fma": 0}
+    routes = {"spatial_attention": {"mma": 42, "fma": 0},
+              "skip_conv_stats": {"generic": 0, "bulk": 42}}
     line = chip_smoke.kernels_line(results, {"train": launches, "sample_video": launches},
                                    {"train": routes, "sample_video": routes})
     json.dumps(line)
@@ -58,10 +59,23 @@ def test_kernels_line_has_every_key():
     for e in entries.values():
         assert CONTRACT_KEYS <= set(e) and e["route"] == "cuda"
     spatial = entries["spatial_attention"]
-    assert spatial["launches_by_route"]["train"] == routes
+    assert spatial["launches_by_route"]["train"] == routes["spatial_attention"]
+    skip = entries["skip_conv_stats"]
+    assert skip["launches_by_route"]["sample_video"] == routes["skip_conv_stats"]
     assert spatial["library"] == "sdpa FLASH_ATTENTION"
     assert spatial["ms"] == pytest.approx(0.02 * 7)
     assert entries["temporal_rpe_attention"]["library_ms"] is None
+
+
+def test_launch_check_requires_the_main_routes():
+    """Every spatial launch on "mma" and every skip projection on "bulk"."""
+    counts = {n: k * 2 for n, k in chip_smoke.PER_FORWARD.items()}
+    good = {"spatial_attention": {"mma": 14, "fma": 0},
+            "skip_conv_stats": {"generic": 0, "bulk": 20}}
+    chip_smoke._check_launches(counts, good, 2)
+    bad = dict(good, skip_conv_stats={"generic": 1, "bulk": 19})
+    with pytest.raises(RuntimeError, match="route"):
+        chip_smoke._check_launches(counts, bad, 2)
 
 
 def test_main_refuses_without_a_card(capsys):

@@ -214,22 +214,22 @@ def _skipconv_tols(dtype, y, s1, s2):
             (1e-4 if f32 else 2e-3) * s2.abs().max().item())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N,c1,c2,F,H,W", [
-    (3, 40, 24, 72, 8, 8),      # c1 != c2, F not a multiple of the channel tile, P = 64
-    (2, 64, 72, 136, 6, 12),    # bf16 fast path: two channel tiles, the last pixel tile 8 wide
-    (2, 17, 5, 9, 5, 7),        # odd widths (element-wise path), one ragged pixel tile
-    (1, 96, 130, 200, 13, 11),  # K past several 32-deep slices, ragged F and P
-    (40, 512, 384, 512, 8, 8),  # flagship ds 16, block 1
-    (4, 128, 128, 128, 64, 64),  # flagship ds 2, block 1 (4 of the 40 frames)
-])
-def test_skip_conv_kernel_matches_plain(cuda, dtype, N, c1, c2, F, H, W):
-    args = _skipconv_inputs(cuda, N, c1, c2, F, H, W, dtype)
+def _skipconv_plan(N, c1, c2, F, H, W, dtype):
+    return skipconv.plan(N, c1, c2, F, H * W, dtype, sms=skipconv._sm_count(0))
+
+
+def _check_skipconv(args, route):
+    """One launch on ``route`` (the kernel's counters), within _skipconv_tols
+    of the plain version."""
+    x1, _, _, _, resid = args
+    N, F, dtype = x1.shape[0], resid.shape[1], x1.dtype
     before = skipconv.skip_conv_stats.launches
+    by_route = dict(skipconv.skip_conv_stats.launches_by_route)
     y, s1, s2 = skipconv.skip_conv_stats(*args)
     ry, r1, r2 = skipconv.skip_conv_stats_plain(*args)
     torch.cuda.synchronize()
     assert skipconv.skip_conv_stats.launches == before + 1
+    assert skipconv.skip_conv_stats.launches_by_route[route] == by_route[route] + 1
     assert y.dtype == dtype and y.shape == ry.shape and s1.shape == (N, F) == s2.shape
     ty, t1, t2 = _skipconv_tols(dtype, ry, r1, r2)
     assert (y.float() - ry.float()).abs().max().item() <= ty
@@ -237,8 +237,116 @@ def test_skip_conv_kernel_matches_plain(cuda, dtype, N, c1, c2, F, H, W):
     assert (s2 - r2).abs().max().item() <= t2
 
 
-def test_skip_conv_statistics_are_deterministic(cuda):
-    args = _skipconv_inputs(cuda, 4, 64, 64, 64, 32, 32, torch.bfloat16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,c1,c2,F,H,W", [
+    (3, 40, 24, 72, 8, 8),      # c1 != c2, F not a multiple of the channel tile, P = 64
+    (2, 64, 72, 136, 6, 12),    # c2 % 16 != 0: the generic route in bf16 too
+    (2, 17, 5, 9, 5, 7),        # odd widths (element-wise path), one ragged pixel tile
+    (1, 96, 130, 200, 13, 11),  # K past several 32-deep slices, ragged F and P
+    (40, 512, 384, 512, 8, 8),  # flagship ds 16, block 1
+    (4, 128, 128, 128, 64, 64),  # flagship ds 2, block 1 (4 of the 40 frames)
+])
+def test_skip_conv_kernel_matches_plain(cuda, dtype, N, c1, c2, F, H, W):
+    args = _skipconv_inputs(cuda, N, c1, c2, F, H, W, dtype)
+    _check_skipconv(args, _skipconv_plan(N, c1, c2, F, H, W, dtype).route)
+
+
+# The bulk route's edges; each case names the plan it must get (w resident,
+# BN). K % 16 == 0, P % 8 == 0 throughout.
+BULK_CASES = {
+    "k-slice-straddles-c1": ((2, 80, 48, 96, 16, 16), (True, 128)),
+    "k-not-multiple-of-64": ((2, 48, 32, 64, 8, 16), (True, 128)),
+    "k-tail-streaming": ((2, 336, 208, 160, 8, 8), (False, 64)),
+    "p-tail": ((3, 64, 64, 128, 10, 20), (True, 128)),
+    "p-tail-below-128": ((2, 32, 32, 64, 9, 8), (True, 64)),
+    "f-tail-resident": ((2, 64, 64, 72, 16, 16), (True, 128)),
+    "f-tail-streaming": ((2, 128, 128, 200, 16, 16), (False, 128)),
+    "more-tiles-than-ctas": ((8, 128, 128, 128, 64, 64), (True, 128)),
+    "streaming-many-tiles": ((12, 256, 256, 256, 32, 32), (False, 128)),
+    "ds1-n4": ((4, 128, 128, 128, 128, 128), (True, 128)),
+    "ds16-flagship": ((40, 512, 512, 512, 8, 8), (False, 64)),
+}
+
+
+@pytest.mark.parametrize("case", list(BULK_CASES))
+def test_skip_conv_bulk_route_matches_plain(cuda, case):
+    shape, (w_resident, bn) = BULK_CASES[case]
+    p = _skipconv_plan(*shape, torch.bfloat16)
+    assert (p.route, p.w_resident, p.bn) == ("bulk", w_resident, bn)
+    if case.startswith("more-tiles"):
+        N, _, _, F, H, W = shape
+        assert N * p.p_tiles * -(-F // p.bm) > p.grid
+    _check_skipconv(_skipconv_inputs(cuda, *shape, torch.bfloat16), "bulk")
+
+
+def test_skip_conv_unaligned_view_takes_the_generic_route(cuda):
+    """bf16 views one element past a 16-byte boundary: same function, generic route."""
+    N, c, F, H, W = 2, 32, 64, 8, 8
+    n = N * c * H * W
+    buf = torch.randn(2, n + 1, generator=cuda, device="cuda").to(torch.bfloat16)
+    x1, x2 = (row[1:].view(N, c, H, W) for row in buf)
+    assert x1.data_ptr() % 16
+    _, _, w, b, r = _skipconv_inputs(cuda, N, c, c, F, H, W, torch.bfloat16)
+    _check_skipconv((x1, x2, w, b, r), "generic")
+
+
+def test_skip_conv_plan_matches_the_library(cuda):
+    """The Python plan is the C library's own, which the launch checks."""
+    import chip_smoke
+
+    sms = skipconv._sm_count(0)
+    sizes = [(40, c1, c2, F, S * S) for _, c1, c2, F, S in chip_smoke.SKIP_SHAPES]
+    sizes += [(N, c1, c2, F, H * W) for (N, c1, c2, F, H, W), _ in BULK_CASES.values()]
+    sizes += [(2, 17, 5, 9, 35), (3, 32, 32, 64, 66), (1, 16, 16, 8, 64)]
+    for size in sizes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for aligned in (True, False):
+                for n_sms in (sms, 4):
+                    kw = dict(aligned=aligned, sms=n_sms)
+                    assert skipconv.plan(*size, dtype, **kw) == \
+                        skipconv.library_plan(*size, dtype, **kw), (size, dtype, kw)
+
+
+def test_skip_conv_refuses_another_plan(cuda):
+    """The C function checks the plan it is given against its own."""
+    import ctypes
+
+    from lfvdm_tpu_torch.ops import _build
+
+    x1, x2, w, b, r = _skipconv_inputs(cuda, 2, 32, 32, 64, 8, 8, torch.bfloat16)
+    p = _skipconv_plan(2, 32, 32, 64, 8, 8, torch.bfloat16)
+    wrong = p._replace(stages=p.stages - 1)
+    y = torch.empty_like(r)
+    part = torch.empty(2 * 2 * p.p_tiles * 64, device="cuda")
+    s1, s2 = torch.empty(2, 64, device="cuda"), torch.empty(2, 64, device="cuda")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _build.function("skip_conv_stats", "lfvdm_skip_conv_stats",
+                         [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, P, P])
+    for plan, want in ((wrong, 1), (p, 0)):  # cudaErrorInvalidValue, cudaSuccess
+        rc = fn(1, x1.data_ptr(), x2.data_ptr(), w.data_ptr(), b.data_ptr(), r.data_ptr(),
+                y.data_ptr(), part.data_ptr(), s1.data_ptr(), s2.data_ptr(), 2, 32, 32, 64, 64,
+                (ctypes.c_int * 8)(*plan.fields()), torch.cuda.current_stream().cuda_stream)
+        assert rc == want
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode,shape", [
+    ("bulk-resident-bn128", (4, 64, 64, 64, 32, 32)),
+    ("bulk-streaming-bn128", (2, 256, 256, 256, 32, 32)),
+    ("bulk-streaming-bn64", (40, 512, 384, 512, 8, 8)),
+    ("bulk-resident-bn64", (4, 64, 64, 64, 8, 8)),
+    ("generic-bf16", (2, 64, 72, 136, 6, 12)),
+])
+def test_skip_conv_statistics_are_deterministic(cuda, mode, shape):
+    """No atomics, a fixed tile order and fixed sums: repeated launches give
+    bitwise-equal y, s1 and s2 on every route and mode."""
+    p = _skipconv_plan(*shape, torch.bfloat16)
+    if mode == "generic-bf16":
+        assert p.route == "generic"
+    else:
+        assert (p.route, p.w_resident, f"bn{p.bn}") == \
+            ("bulk", "resident" in mode, mode.split("-")[-1])
+    args = _skipconv_inputs(cuda, *shape, torch.bfloat16)
     first = skipconv.skip_conv_stats(*args)
     for _ in range(3):
         again = skipconv.skip_conv_stats(*args)

@@ -7,6 +7,7 @@ through both, transposed at the boundary.
 
 import functools
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -126,7 +127,65 @@ def test_cpu_calls_launch_no_kernel():
     args = torch_args(make(5, 2, 4, 4, 4, 9))
     tsc.skip_conv_stats(*args)
     tsc.skip_conv_stats(*args, impl="plain")
+    bf16 = [a.to(torch.bfloat16) for a in torch_args(make(6, 2, 16, 16, 16, 64))]
+    tsc.skip_conv_stats(*bf16)  # a shape the card would put on the bulk route
     assert tsc.skip_conv_stats.launches == 0
+    assert tsc.skip_conv_stats.launches_by_route == {"generic": 0, "bulk": 0}
     assert ops.launch_counts()["skip_conv_stats"] == 0
     with pytest.raises(ValueError, match="impl"):
         tsc.skip_conv_stats(*args, impl="kernel")
+
+
+# The launch plan (pure Python; the C function refuses any other plan, which
+# the card tests check against the library's own).
+
+FLAGSHIP_N = chip_smoke.FLAGSHIP_B * chip_smoke.FLAGSHIP_K
+
+
+@pytest.mark.parametrize("shape", list(dict.fromkeys(chip_smoke.SKIP_SHAPES)),
+                         ids=lambda s: "-".join(map(str, s)))
+def test_flagship_shapes_plan_the_bulk_route(shape):
+    _, c1, c2, F, S = shape
+    N, P = FLAGSHIP_N, S * S
+    p = tsc.plan(N, c1, c2, F, P, torch.bfloat16)
+    assert p.route == "bulk"
+    assert 0 < p.smem <= tsc.SMEM_MAX == 232448  # the H100's 227 KB a block
+    assert p.smem == tsc._bulk_smem(p.bn, c1 + c2, p.w_resident, p.stages)
+    assert 2 <= p.stages <= tsc.MAX_STAGES
+    # partial holds one sum per (sample, pixel tile, channel): the tiles cover P exactly once.
+    assert (p.p_tiles - 1) * p.bn < P <= p.p_tiles * p.bn
+    tiles = N * p.p_tiles * -(-F // p.bm)
+    assert p.grid == min(tiles, tsc.H100_SMS)  # persistent: one CTA per SM
+    # w stays resident where one channel tile covers F and K is small (ds 1, ds 2).
+    assert p.w_resident == (F <= p.bm and c1 + c2 <= tsc.W_RESIDENT_MAX_K)
+    assert p.bn == (128 if P >= 128 else 64)
+    assert len(p.fields()) == 8 and p.fields()[0] == 1
+
+
+@pytest.mark.parametrize("why,N,c1,c2,F,P,dtype,aligned", [
+    ("f32", FLAGSHIP_N, 128, 128, 128, 128 * 128, torch.float32, True),
+    ("odd widths", 2, 17, 5, 9, 35, torch.bfloat16, True),
+    ("c2 % 16", 2, 64, 72, 136, 72, torch.bfloat16, True),
+    ("P % 8", 3, 32, 32, 64, 66, torch.bfloat16, True),
+    ("unaligned", 2, 64, 64, 64, 64, torch.bfloat16, False),
+])
+def test_other_inputs_plan_the_generic_route(why, N, c1, c2, F, P, dtype, aligned):
+    p = tsc.plan(N, c1, c2, F, P, dtype, aligned=aligned)
+    assert p.route == "generic" and p.smem == 0 and p.fields()[0] == 0
+    assert (p.bm, p.bn, p.p_tiles) == (64, 64, -(-P // 64))
+    assert p.grid == p.p_tiles * -(-F // 64) * N
+
+
+def test_plan_sizes_the_ring_to_shared_memory():
+    """w resident at ds 2's K = 384 leaves room for 3 stages, at K = 256 for
+    4; past the limit on K, w streams through the ring."""
+    ds2 = tsc.plan(FLAGSHIP_N, 256, 128, 128, 64 * 64, torch.bfloat16)
+    assert ds2.w_resident and ds2.stages == 3
+    ds1 = tsc.plan(FLAGSHIP_N, 128, 128, 128, 128 * 128, torch.bfloat16)
+    assert ds1.w_resident and ds1.stages == 4 and ds1.smem == 211200
+    wide = tsc.plan(FLAGSHIP_N, 256, 256, 128, 64 * 64, torch.bfloat16)
+    assert not wide.w_resident and wide.stages == 4
+    small = tsc.plan(1, 16, 16, 8, 64, torch.bfloat16, sms=4)
+    assert small.route == "bulk" and small.grid == 1  # one tile, one CTA
+    with pytest.raises(ValueError):
+        tsc.plan(0, 16, 16, 8, 64, torch.bfloat16)
