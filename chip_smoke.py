@@ -44,7 +44,30 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                resume, and a profile of one step by kernel group.
   7. parity  — one train step's loss and gradients on the kernel path against
                impl="plain", in bf16 and in f32 (TF32 off).
-  8. the "kernels" summary line, then {"ok": true, "device": {...}} last.
+  8. latent  — the latent path (config.latent_config(): 32x32 C4 SVD-VAE
+               latents, 64 channels, B=1, K=5, bf16), whose kernel launches
+               phase 3 already held against their plain versions at the latent
+               shapes (attention F=32 with D=256, 64, 16 over T=5 frames; the 8
+               up-path skip projections, 4x4 to 32x32 pixels):
+               a. unet   — the latent U-Net forward, kernel vs plain (bf16 and
+                           f32), fused vs unfused skip projection, 7 + 7 + 8
+                           launches per forward on the routes the shape rules
+                           (_spatial_route, skipconv.plan) give;
+               b. sample — VideoSampler(codec=PreEncodedLatentCodec(vae=SVDVae))
+                           samples a 20-frame latent video (autoreg, n_obs 2,
+                           max_frames 5, step 2, ancestral, 50 steps) and decodes
+                           it once through the full-width VAE (seeded random
+                           weights) to (1, 20, 3, 256, 256); the observed latent
+                           frames must be kept exactly;
+               c. vae    — encode (mean) and decode of one 64 px frame, card vs
+                           the machine's CPU in f32 (relative L2 <= 1e-2), at
+                           PyTorch's TF32 defaults and with TF32 off;
+               d. train  — TrainLoop on the latent config: 3 steps over an
+                           EncodedNpyDataset of seeded latents (written to a
+                           temporary directory and removed), then 2 steps with
+                           VAECodec encoding 256 px frames online.
+               The VAE phases run at PyTorch's default TF32 settings.
+  9. the "kernels" summary line, then {"ok": true, "device": {...}} last.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the lfvdm_tpu_torch package is not beside this script.
@@ -100,6 +123,22 @@ ROUTED = {"spatial_attention": SPATIAL_ROUTES["bfloat16"],
 SOURCES = {"temporal_rpe_attention": "lfvdm_tpu_torch/ops/csrc/temporal_rpe_attention.cu",
            "spatial_attention": "lfvdm_tpu_torch/ops/csrc/spatial_attention.cu",
            "skip_conv_stats": "lfvdm_tpu_torch/ops/csrc/skip_conv_stats.cu"}
+# The latent config's window (config.latent_config(), the reference's latent
+# command), its attention shapes (tokens D at ds 2, 4 and the middle block's
+# ds 8; 4 heads of 32 features) with launches per forward, and its 8 up-path
+# skip projections (level, c1, c2, F, H = W; M = B·K·H·W rows).
+LATENT_B, LATENT_K = 1, 5
+LATENT_ATTN_SHAPES = {"ds2": dict(H=4, D=256, F=32, per_forward=3),
+                      "ds4": dict(H=4, D=64, F=32, per_forward=3),
+                      "ds8": dict(H=4, D=16, F=32, per_forward=1)}
+LATENT_SKIP_SHAPES = [("ds8", 128, 128, 128, 4), ("ds8", 128, 128, 128, 4),
+                      ("ds4", 128, 128, 128, 8), ("ds4", 128, 128, 128, 8),
+                      ("ds2", 128, 128, 128, 16), ("ds2", 128, 64, 128, 16),
+                      ("ds1", 128, 64, 64, 32), ("ds1", 64, 64, 64, 32)]
+LATENT_PER_FORWARD = {"temporal_rpe_attention": 7, "spatial_attention": 7, "skip_conv_stats": 8}
+LATENT_WINDOW = dict(B=LATENT_B, K=LATENT_K, n_obs=2, n_latent=3)  # window_inputs sizes
+LATENT_RESPACING = "50"
+LATENT_VIDEO_T = 20
 
 
 def emit(obj):
@@ -223,8 +262,8 @@ def phase_build():
 
 
 def temporal_inputs(H, D, F, dtype, gen, B=FLAGSHIP_B, T=FLAGSHIP_K):
-    """Kernel-layout inputs; the mask holds 10 observed, 8 latent and 2
-    padding frames (mask 0), so both groups of the two-group softmax occur."""
+    """Kernel-layout inputs; the mask's last 2 frames are padding (mask 0),
+    so both groups of the two-group softmax occur."""
     import torch
 
     def rnd(*shape, scale=1.0):
@@ -262,70 +301,97 @@ def spatial_work(H, D, F, esize, B=FLAGSHIP_B, T=FLAGSHIP_K):
 
 
 def phase_kernels():
+    """Both attention kernels at the flagship and the latent shapes (f32 and
+    bf16), the skip projection at every distinct up-path shape of both
+    configs, and the edge shapes."""
     import torch
-    import torch.nn.functional as Fn
-
-    from lfvdm_tpu_torch.ops import attention as ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        esize = torch.finfo(dtype).bits // 8
         for ds, shp in ATTN_SHAPES.items():
-            H, D, F = shp["H"], shp["D"], shp["F"]
-            cases = {
-                "temporal_rpe_attention": (
-                    temporal_inputs(H, D, F, dtype, gen), ops.temporal_rpe_attention,
-                    ops.temporal_rpe_attention_plain, None, temporal_work(H, D, F, esize)),
-                "spatial_attention": (
-                    spatial_inputs(H, D, F, dtype, gen), ops.spatial_attention,
-                    ops.spatial_attention_plain, _sdpa(Fn, SDPA_BACKENDS[dname]),
-                    spatial_work(H, D, F, esize)),
-            }
-            for name, (args, kernel, plain, library, (nbytes, flops)) in cases.items():
-                with torch.no_grad():
-                    routes = dict(ops.spatial_attention.launches_by_route)
-                    out = kernel(*args)
-                    route = next((r for r, n in ops.spatial_attention.launches_by_route.items()
-                                  if n != routes[r]), None)
-                    ref = plain(*args)
-                    torch.cuda.synchronize()
-                    err = (out.float() - ref.float()).abs().max().item()
-                    scale = ref.float().abs().max().item()
-                    if not torch.isfinite(out.float()).all():
-                        raise RuntimeError(f"{name} {ds} {dname}: non-finite output")
-                    ms = cuda_ms(lambda: kernel(*args), 50, queued=True)
-                    unqueued_ms = cuda_ms(lambda: kernel(*args), 50)
-                    plain_ms = cuda_ms(lambda: plain(*args), 20, queued=True)
-                    lib_ms = cuda_ms(lambda: library(*args), 50, queued=True) if library else None
-                b_ms, b_by = bound(nbytes, flops, dname)
-                limit = 1e-4 if dtype == torch.float32 else 2e-2 * scale
-                row = {"phase": "kernel", "name": name, "ds": ds, "dtype": dname,
-                       "shape": list(args[0].shape), "max_abs_err": err, "max_abs_ref": scale,
-                       "rel_err": err / scale, "limit_abs": limit, "ms": ms,
-                       "unqueued_ms": unqueued_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                       "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
-                if name == "spatial_attention":
-                    row["route"] = route
-                    row["library"] = f"sdpa {SDPA_BACKENDS[dname]} on (B·T, H, D, F)"
-                else:  # the least time of the same operations on the CUDA cores
-                    row["fma_floor_ms"] = flops / PEAK_FLOPS["float32"] * 1e3
-                emit(row)
-                if not err <= limit:
-                    raise RuntimeError(f"{name} {ds} {dname}: max abs err {err} > {limit}")
-                if name == "spatial_attention" and route != SPATIAL_ROUTES[dname]:
-                    raise RuntimeError(f"spatial {ds} {dname} took route {route}, "
-                                       f"expected {SPATIAL_ROUTES[dname]}")
-                results[(name, ds, dname)] = row
+            for row in _attention_cases(ds, shp, dtype, gen):
+                results[(row["name"], ds, row["dtype"])] = row
+        for ds, shp in LATENT_ATTN_SHAPES.items():
+            for row in _attention_cases(ds, shp, dtype, gen, B=LATENT_B, T=LATENT_K,
+                                        path="latent"):
+                results[("latent", row["name"], ds, row["dtype"])] = row
     for dtype, shapes in ((torch.bfloat16, SKIP_SHAPES), (torch.float32, SKIP_F32_SHAPES)):
         for shape in dict.fromkeys(shapes):  # distinct shapes, in order
             results[("skip_conv_stats",) + shape + (str(dtype).split(".")[-1],)] = \
                 _skip_conv_case(dtype, shape, gen)
+    for shape in dict.fromkeys(LATENT_SKIP_SHAPES):
+        results[("latent", "skip_conv_stats") + shape + ("bfloat16",)] = _skip_conv_case(
+            torch.bfloat16, shape, gen, B=LATENT_B, T=LATENT_K, path="latent")
     _edge_cases(gen)
     return results
+
+
+def _attention_cases(ds, shp, dtype, gen, B=FLAGSHIP_B, T=FLAGSHIP_K, path="flagship"):
+    """Temporal and spatial attention at one shape against their plain
+    versions: errors, device times of the kernel, the plain version and the
+    library yardstick, and the bound; the spatial route must be the one
+    ``_spatial_route`` gives for the shape."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from lfvdm_tpu_torch.ops import attention as ops
+
+    dname = str(dtype).split(".")[-1]
+    esize = torch.finfo(dtype).bits // 8
+    H, D, F = shp["H"], shp["D"], shp["F"]
+    cases = {
+        "temporal_rpe_attention": (
+            temporal_inputs(H, D, F, dtype, gen, B=B, T=T), ops.temporal_rpe_attention,
+            ops.temporal_rpe_attention_plain, None, temporal_work(H, D, F, esize, B=B, T=T)),
+        "spatial_attention": (
+            spatial_inputs(H, D, F, dtype, gen, B=B, T=T), ops.spatial_attention,
+            ops.spatial_attention_plain, _sdpa(Fn, SDPA_BACKENDS[dname]),
+            spatial_work(H, D, F, esize, B=B, T=T)),
+    }
+    rows = []
+    for name, (args, kernel, plain, library, (nbytes, flops)) in cases.items():
+        with torch.no_grad():
+            routes = dict(ops.spatial_attention.launches_by_route)
+            out = kernel(*args)
+            route = next((r for r, n in ops.spatial_attention.launches_by_route.items()
+                          if n != routes[r]), None)
+            ref = plain(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            if not torch.isfinite(out.float()).all():
+                raise RuntimeError(f"{name} {path} {ds} {dname}: non-finite output")
+            ms = cuda_ms(lambda: kernel(*args), 50, queued=True)
+            unqueued_ms = cuda_ms(lambda: kernel(*args), 50)
+            plain_ms = cuda_ms(lambda: plain(*args), 20, queued=True)
+            lib_ms = cuda_ms(lambda: library(*args), 50, queued=True) if library else None
+        b_ms, b_by = bound(nbytes, flops, dname)
+        limit = 1e-4 if dtype == torch.float32 else 2e-2 * scale
+        row = {"phase": "kernel", "path": path, "name": name, "ds": ds, "dtype": dname,
+               "shape": list(args[0].shape), "max_abs_err": err, "max_abs_ref": scale,
+               "rel_err": err / scale, "limit_abs": limit, "ms": ms,
+               "unqueued_ms": unqueued_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+        if name == "spatial_attention":
+            want = ops._spatial_route(dtype, D, F, args + (out,))
+            row["route"], row["rule_route"] = route, want
+            row["library"] = f"sdpa {SDPA_BACKENDS[dname]} on (B·T, H, D, F)"
+        else:  # the least time of the same operations on the CUDA cores
+            row["fma_floor_ms"] = flops / PEAK_FLOPS["float32"] * 1e3
+        emit(row)
+        if not err <= limit:
+            raise RuntimeError(f"{name} {path} {ds} {dname}: max abs err {err} > {limit}")
+        if name == "spatial_attention" and route != want:
+            raise RuntimeError(f"spatial {path} {ds} {dname} took route {route}, "
+                               f"the rule gives {want}")
+        if path == "flagship" and name == "spatial_attention" and route != SPATIAL_ROUTES[dname]:
+            raise RuntimeError(f"spatial {ds} {dname} took route {route}, "
+                               f"expected {SPATIAL_ROUTES[dname]}")
+        rows.append(row)
+    return rows
 
 
 def _edge_cases(gen):
@@ -366,7 +432,7 @@ def _edge_cases(gen):
                 raise RuntimeError(f"{name} {edge} {dname}: max abs err {err} > {limit}")
 
 
-def _skip_conv_case(dtype, shape, gen, B=FLAGSHIP_B, T=FLAGSHIP_K):
+def _skip_conv_case(dtype, shape, gen, B=FLAGSHIP_B, T=FLAGSHIP_K, path="flagship"):
     """skip_conv_stats at one up-path shape against its plain version: y, s1
     and s2 errors; times of the kernel, the plain version and a baddbmm of
     resid + W·[x1 ‖ x2] (y without the bias and the statistics)."""
@@ -409,8 +475,8 @@ def _skip_conv_case(dtype, shape, gen, B=FLAGSHIP_B, T=FLAGSHIP_K):
     b_ms, b_by = bound(nbytes, flops, dname)
     rel = (1e-5, 1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-3, 2e-3)
     limits = [r * sc for r, sc in zip(rel, scales)]
-    row = {"phase": "kernel", "name": "skip_conv_stats", "ds": level, "dtype": dname,
-           "c1": c1, "c2": c2, "F": F, "M": N * P, "route": route, "plan": plan._asdict(),
+    row = {"phase": "kernel", "path": path, "name": "skip_conv_stats", "ds": level,
+           "dtype": dname, "N": N, "c1": c1, "c2": c2, "F": F, "M": N * P, "route": route, "plan": plan._asdict(),
            "err_y": errs[0], "err_s1": errs[1],
            "err_s2": errs[2], "max_abs_ref": scales, "limit_abs": limits,
            "max_abs_err": errs[0], "ms": ms, "unqueued_ms": unqueued_ms, "plain_ms": plain_ms,
@@ -418,8 +484,8 @@ def _skip_conv_case(dtype, shape, gen, B=FLAGSHIP_B, T=FLAGSHIP_K):
            "library": "baddbmm(resid, W, cat(x1, x2)): y without bias and statistics",
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
     emit(row)
-    if route != SKIP_ROUTES[dname] or plan.route != route:
-        raise RuntimeError(f"skip_conv_stats {shape} {dname} took route {route} (plan "
+    if plan.route != route or (path == "flagship" and route != SKIP_ROUTES[dname]):
+        raise RuntimeError(f"skip_conv_stats {path} {shape} {dname} took route {route} (plan "
                            f"{plan.route}), expected {SKIP_ROUTES[dname]}")
     if not finite:
         raise RuntimeError(f"skip_conv_stats {shape} {dname}: non-finite output")
@@ -456,38 +522,55 @@ def kernels_line(results, launches_by_path, routes_by_path):
     """One entry per kernel: numbers for the work of one flagship U-Net
     forward in bf16 (attention: 3 launches at ds 8 + 4 at ds 16; skip
     projection: its 10 up-path shapes). ``launches`` is the count of the
-    training path (this slice's main path); the sampling path's is beside it,
-    and the spatial and skip-projection kernels' counts by route on both."""
+    training path (the flagship's main path); the other paths' counts are
+    beside it, and the spatial and skip-projection kernels' counts by route
+    on every path. ``latent`` holds the same numbers for one latent U-Net
+    forward, with a row per launch shape."""
     entries = []
     for name in KERNEL_NAMES:
         if name == "skip_conv_stats":
             rows = [(results[("skip_conv_stats",) + shp + ("bfloat16",)], 1)
                     for shp in SKIP_SHAPES]
             unit = "one flagship U-Net forward, bf16: the 10 up-path skip projections"
+            latent = [(results[("latent", name) + shp + ("bfloat16",)], 1)
+                      for shp in LATENT_SKIP_SHAPES]
+            latent_unit = "one latent U-Net forward (B=1, K=5), bf16: the 8 skip projections"
         else:
             rows = [(results[(name, ds, "bfloat16")], shp["per_forward"])
                     for ds, shp in ATTN_SHAPES.items()]
             unit = "one flagship U-Net forward, bf16: 3 launches at ds8 + 4 at ds16"
-        nbytes = sum(r["bytes"] * n for r, n in rows)
-        flops = sum(r["flops"] * n for r, n in rows)
-        b_ms, b_by = bound(nbytes, flops, "bfloat16")
-        lib = [r["library_ms"] for r, _ in rows]
-        entries.append({
-            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches_by_path["train"][name],
-            "launches_by_path": {path: c[name] for path, c in launches_by_path.items()},
-            "max_abs_err": max(r["max_abs_err"] for r, _ in rows),
+            latent = [(results[("latent", name, ds, "bfloat16")], shp["per_forward"])
+                      for ds, shp in LATENT_ATTN_SHAPES.items()]
+            latent_unit = "one latent U-Net forward (B=1, K=5), bf16: 3 at ds2 + 3 at ds4 + 1 at ds8"
+        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name], "launches": launches_by_path["train"][name],
+                 "launches_by_path": {path: c[name] for path, c in launches_by_path.items()},
+                 **_summed(rows), "unit": unit}
+        entry["latent"] = dict(_summed(latent), unit=latent_unit, per_launch=[
+            {k: r.get(k) for k in ("ds", "shape", "N", "c1", "c2", "F", "M", "route", "ms",
+                                   "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                   "max_abs_err")} | {"per_forward": n}
+            for r, n in latent])
+        if name in ROUTED:
+            entry["launches_by_route"] = {path: r[name] for path, r in routes_by_path.items()}
+        if name == "spatial_attention":
+            entry["library"] = rows[0][0]["library"]
+        entries.append(entry)
+    return {"kernels": entries}
+
+
+def _summed(rows):
+    """The contract's numbers over (row, launches) pairs: times summed, the
+    bound of the summed bytes and operations, the largest error."""
+    nbytes = sum(r["bytes"] * n for r, n in rows)
+    flops = sum(r["flops"] * n for r, n in rows)
+    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    lib = [r["library_ms"] for r, _ in rows]
+    return {"max_abs_err": max(r["max_abs_err"] for r, _ in rows),
             "ms": sum(r["ms"] * n for r, n in rows),
             "plain_ms": sum(r["plain_ms"] * n for r, n in rows),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if None in lib else sum(x * n for x, (_, n) in zip(lib, rows)),
-            "unit": unit,
-        })
-        if name in ROUTED:
-            entries[-1]["launches_by_route"] = {path: r[name] for path, r in routes_by_path.items()}
-        if name == "spatial_attention":
-            entries[-1]["library"] = rows[0][0]["library"]
-    return {"kernels": entries}
+            "library_ms": None if None in lib else sum(x * n for x, (_, n) in zip(lib, rows))}
 
 
 # ---------------------------------------------------------------------------
@@ -534,6 +617,18 @@ def flagship_model(device, compute_dtype="bfloat16"):
     return cfg, model, diffusion
 
 
+def latent_model(device, compute_dtype="bfloat16"):
+    """The latent config at full width with the flagship's seeded weights."""
+    import torch
+
+    from lfvdm_tpu_torch.config import create_model_and_diffusion, latent_config
+
+    cfg = dict(latent_config(), timestep_respacing=LATENT_RESPACING, compute_dtype=compute_dtype)
+    model, diffusion = create_model_and_diffusion(cfg, device=device, seed=0)
+    randomize_zero_modules(model, torch.Generator().manual_seed(1))
+    return cfg, model, diffusion
+
+
 def window_inputs(cfg, device, gen, B=FLAGSHIP_B, K=FLAGSHIP_K, n_obs=10, n_latent=8):
     """One window: 10 observed, 8 latent and 2 padding frames."""
     import torch
@@ -551,21 +646,29 @@ def window_inputs(cfg, device, gen, B=FLAGSHIP_B, K=FLAGSHIP_K, n_obs=10, n_late
     return x, t, dict(x0=x0, frame_indices=fi, obs_mask=obs, latent_mask=lat)
 
 
-def phase_unet(cfg, model):
-    """The bf16 flagship forward on the kernel path against the plain path
-    (relative L2 <= 5e-3), and the same weights in f32 (TF32 off), where the
-    two paths differ only by summation order (relative L2 <= 1e-4)."""
+def phase_unet(cfg, model, latent=False):
+    """The bf16 forward (flagship, or the latent config's with ``latent``) on
+    the kernel path against the plain path (relative L2 <= 5e-3), and the
+    same weights in f32 (TF32 off), where the two paths differ only by
+    summation order (relative L2 <= 1e-4)."""
     import torch
 
     from lfvdm_tpu_torch.models.unet import attention_blocks, fused_skip_blocks
     from lfvdm_tpu_torch.ops import attention as ops
 
+    if latent:
+        path, build, blocks = "latent", latent_model, (7, 8)
+        per_forward, route_counts = LATENT_PER_FORWARD, latent_route_counts(_sms())
+        window = LATENT_WINDOW
+    else:
+        path, build, blocks = "flagship", flagship_model, (7, 10)
+        per_forward, route_counts, window = PER_FORWARD, None, {}
     n_blocks = (attention_blocks(model), fused_skip_blocks(model))
-    if n_blocks != (7, 10):
-        raise RuntimeError(f"flagship U-Net has {n_blocks} attention and skip-projection "
-                           "blocks, expected (7, 10)")
+    if n_blocks != blocks:
+        raise RuntimeError(f"{path} U-Net has {n_blocks} attention and skip-projection "
+                           f"blocks, expected {blocks}")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    x, t, kw = window_inputs(cfg, "cuda", gen)
+    x, t, kw = window_inputs(cfg, "cuda", gen, **window)
     with torch.no_grad():
         ops.reset_launch_counts()
         out, _ = model(x, t, **kw)
@@ -577,7 +680,7 @@ def phase_unet(cfg, model):
         ms = cuda_ms(lambda: model(x, t, **kw), 10)
         plain_ms = cuda_ms(lambda: model(x, t, impl="plain", **kw), 10)
         unfused, unfused_ms, fused_ms = _unfused(model, x, t, kw)
-        _, model32, _ = flagship_model("cuda", compute_dtype="float32")
+        _, model32, _ = build("cuda", compute_dtype="float32")
         out32, _ = model32(x, t, **kw)
         ref32, _ = model32(x, t, impl="plain", **kw)
         unfused32 = _unfused(model32, x, t, kw, time_it=False)[0]
@@ -586,7 +689,7 @@ def phase_unet(cfg, model):
     def rel(a, b):
         return ((a - b).norm() / b.norm()).item()
 
-    row = {"phase": "unet", "shape": list(x.shape), "dtype": "bfloat16",
+    row = {"phase": "unet", "path": path, "shape": list(x.shape), "dtype": "bfloat16",
            "launches_per_forward": counts, "routes_per_forward": routes,
            "rel_l2_vs_plain": rel(out, ref),
            "f32_rel_l2_vs_plain": rel(out32, ref32), "bf16_plain_vs_f32_plain": rel(ref, ref32),
@@ -601,7 +704,7 @@ def phase_unet(cfg, model):
         raise RuntimeError("U-Net output is not finite")
     if ref.abs().max().item() == 0.0:
         raise RuntimeError("U-Net output is exactly zero: the comparison would be vacuous")
-    _check_launches(counts, routes, 1)
+    _check_launches(counts, routes, 1, per_forward, route_counts)
     for key, limit in (("rel_l2_vs_plain", 5e-3), ("f32_rel_l2_vs_plain", 1e-4),
                        ("fused_vs_unfused_rel_l2", 1e-2), ("f32_fused_vs_unfused_rel_l2", 1e-4)):
         if not row[key] <= limit:
@@ -632,17 +735,18 @@ def _unfused(model, x, t, kw, time_it=True):
     return out, sum(times[False]) / 2, sum(times[True]) / 2
 
 
-def phase_profile(cfg, model, forwards: int = 3):
-    """Where one flagship forward's device time goes: torch.profiler over a
-    few kernel-path forwards; device time per forward by kernel name (top
-    25), the two attention kernels' share, and the device's idle share of
-    the forward's wall time measured without the profiler (whose host-side
-    cost would otherwise count as idle)."""
+def phase_profile(cfg, model, forwards: int = 3, path="flagship", window=None):
+    """Where one forward's device time goes (the flagship's, or another
+    path's with its ``window_inputs`` sizes): torch.profiler over a few
+    kernel-path forwards; device time per forward by kernel name (top 25),
+    the port kernels' share, and the device's idle share of the forward's
+    wall time measured without the profiler (whose host-side cost would
+    otherwise count as idle)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    x, t, kw = window_inputs(cfg, "cuda", gen)
+    x, t, kw = window_inputs(cfg, "cuda", gen, **(window or {}))
     with torch.no_grad():
         wall_ms = cuda_ms(lambda: model(x, t, **kw), forwards)  # without the profiler
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -655,7 +759,7 @@ def phase_profile(cfg, model, forwards: int = 3):
             for name in KERNEL_NAMES}
     syncs = _host_syncs(prof, forwards)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:25]
-    emit({"phase": "profile", "forwards": forwards, "wall_ms_per_forward": wall_ms,
+    emit({"phase": "profile", "path": path, "forwards": forwards, "wall_ms_per_forward": wall_ms,
           "groups_ms_per_forward": group_ms(per_kernel),
           "device_busy_ms_per_forward": busy,
           "idle_share": 1 - busy / wall_ms if busy else None,
@@ -796,16 +900,41 @@ def read_counts():
                                  for name in ROUTED}
 
 
-def _check_launches(launches, routes, calls):
-    """``PER_FORWARD`` launches per model call, every spatial one on the bf16
-    "mma" route and every skip projection on the bf16 "bulk" route."""
-    want = {name: n * calls for name, n in PER_FORWARD.items()}
+def _check_launches(launches, routes, calls, per_forward=PER_FORWARD, route_counts=None):
+    """``per_forward`` launches per model call, and the routed kernels'
+    launches per model call by route as ``route_counts`` gives them (by
+    default every spatial one on the bf16 "mma" route and every skip
+    projection on the bf16 "bulk" route)."""
+    if route_counts is None:
+        route_counts = {name: {ROUTED[name]: per_forward[name]} for name in ROUTED}
+    want = {name: n * calls for name, n in per_forward.items()}
     if launches != want:
-        raise RuntimeError(f"launch counts {launches} != {PER_FORWARD} per model call ({want})")
-    want_routes = {name: {r: want[name] if r == ROUTED[name] else 0 for r in routes[name]}
+        raise RuntimeError(f"launch counts {launches} != {per_forward} per model call ({want})")
+    want_routes = {name: {r: route_counts[name].get(r, 0) * calls for r in routes[name]}
                    for name in ROUTED}
     if routes != want_routes:
         raise RuntimeError(f"launches by route {routes} != {want_routes}")
+
+
+def latent_route_counts(sms=None):
+    """The routed kernels' launches per latent forward by route, as the
+    shape rules give them: ``_spatial_route`` at each attention shape (bf16,
+    aligned data) and ``skipconv.plan`` at each skip projection's sizes."""
+    import torch
+
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.ops import skipconv
+
+    counts = {name: {} for name in ROUTED}
+    spatial, skip = counts["spatial_attention"], counts["skip_conv_stats"]
+    for shp in LATENT_ATTN_SHAPES.values():
+        route = ops._spatial_route(torch.bfloat16, shp["D"], shp["F"], ())
+        spatial[route] = spatial.get(route, 0) + shp["per_forward"]
+    for _, c1, c2, F, S in LATENT_SKIP_SHAPES:
+        route = skipconv.plan(LATENT_B * LATENT_K, c1, c2, F, S * S, torch.bfloat16,
+                              sms=sms or skipconv.H100_SMS).route
+        skip[route] = skip.get(route, 0) + 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1049,6 +1178,250 @@ def _parity_once(compute_dtype, B):
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 8: the latent path
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def torch_tf32_defaults():
+    """PyTorch's own defaults inside (f32 convolutions in TF32 through
+    cuDNN, f32 matmuls in full f32), whatever phase 3 set; restored after."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class RecordingCodec:
+    """A codec whose decode keeps the latents it was given, its wall time
+    and the device memory it peaked at, then decodes through ``codec``."""
+
+    def __init__(self, codec):
+        self.codec = codec
+
+    def decode(self, video):
+        import torch
+
+        self.latents = video.clone()
+        torch.cuda.synchronize()
+        self.mem_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = self.codec.decode(video)
+        torch.cuda.synchronize()
+        self.decode_s = time.perf_counter() - t0
+        self.peak = torch.cuda.max_memory_allocated()
+        return out
+
+
+class TimedEncode:
+    """A codec whose encode's wall time (synchronised) is added up."""
+
+    def __init__(self, codec):
+        self.codec = codec
+        self.encode_s = []
+
+    def encode(self, video, generator=None):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.codec.encode(video, generator=generator)
+        torch.cuda.synchronize()
+        self.encode_s.append(time.perf_counter() - t0)
+        return out
+
+
+def latent_stats(seed=20):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.normal(0.0, 0.5, 4).astype(np.float32), rng.uniform(0.5, 1.5, 4).astype(np.float32)
+
+
+def phase_latent_sample(cfg, model, diffusion, vae, card):
+    """A 20-frame latent video through VideoSampler with the pre-encoded
+    codec over the full-width VAE: the observed latent frames kept exactly
+    before the decode, a finite (1, 20, 3, 256, 256) video after it, and
+    7 + 7 + 8 launches per model call on the routes the rules give."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.diffusion.codecs import PreEncodedLatentCodec
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.sampling.driver import VideoSampler
+
+    B, T, C, S = LATENT_B, LATENT_VIDEO_T, cfg["in_channels"], cfg["image_size"]
+    n_obs = 2
+    video = np.random.default_rng(21).standard_normal((B, T, C, S, S)).astype(np.float32)
+    codec = RecordingCodec(PreEncodedLatentCodec(*latent_stats(), vae=vae))
+    sampler = VideoSampler(model, diffusion, codec=codec)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pixels, used = sampler.sample_video(video, scheme_name="autoreg", n_obs=n_obs,
+                                        max_frames=LATENT_K, step_size=2, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = read_counts()
+    calls = sampler.model_calls
+    sample_s = wall - codec.decode_s
+    row = {"phase": "latent_sample", "card": card, "sampler": "ancestral",
+           "respacing": LATENT_RESPACING, "latent_video": [B, T, C, S, S],
+           "decoded": list(pixels.shape), "windows": len(used),
+           "window_frames": [len(o[0]) + len(lt[0]) for o, lt in used], "model_calls": calls,
+           "launches": launches, "routes": routes, "wall_s": wall, "sampling_s": sample_s,
+           "ms_per_model_call": sample_s / calls * 1e3, "decode_s": codec.decode_s,
+           "decode_ms_per_frame": codec.decode_s / (B * T) * 1e3,
+           "vae_decode_peak_mem_gib": codec.peak / 2**30,
+           "vae_decode_added_mem_gib": (codec.peak - codec.mem_before) / 2**30,
+           "vae_params": sum(p.numel() for p in vae.parameters()),
+           "max_abs_pixel": float(np.abs(pixels).max())}
+    emit(row)
+    _check_video(codec.latents.cpu().numpy(), video, n_obs, used, T)
+    if pixels.shape != (B, T, 3, 8 * S, 8 * S) or not np.isfinite(pixels).all():
+        raise RuntimeError(f"decoded video {pixels.shape} is not a finite (1, 20, 3, 256, 256)")
+    _check_launches(launches, routes, calls, LATENT_PER_FORWARD, latent_route_counts(_sms()))
+    return launches, routes
+
+
+def _sms():
+    from lfvdm_tpu_torch.ops import skipconv
+
+    return skipconv._sm_count(0)
+
+
+def phase_vae_cpu(vae, card):
+    """Encode (the mean) and decode of one 64 px frame on the card against
+    the same weights in f32 on this machine's CPU, at PyTorch's TF32
+    defaults (the bound, relative L2 <= 1e-2) and with TF32 off."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.models.vae import SVDVae
+
+    cpu = SVDVae({k: v.cpu() for k, v in vae.state_dict().items()}, device="cpu")
+    rng = np.random.default_rng(24)
+    frame = rng.uniform(-1, 1, (1, 1, 3, 64, 64)).astype(np.float32)
+    z = rng.standard_normal((1, 1, 4, 8, 8)).astype(np.float32)
+    t0 = time.perf_counter()
+    ref_z, ref_x = cpu.encode_video(frame), cpu.decode_video(z)
+    cpu_s = time.perf_counter() - t0
+
+    def rel(a, b):
+        return ((a.cpu() - b).norm() / b.norm()).item()
+
+    row = {"phase": "latent_vae_vs_cpu", "card": card, "frame": [64, 64], "latent": [8, 8],
+           "cpu_s": cpu_s}
+    for label, tf32 in (("tf32_default", True), ("tf32_off", False)):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+            row[f"encode_rel_l2_{label}"] = rel(vae.encode_video(frame), ref_z)
+            row[f"decode_rel_l2_{label}"] = rel(vae.decode_video(z), ref_x)
+    emit(row)
+    del cpu
+    for key in ("encode_rel_l2_tf32_default", "decode_rel_l2_tf32_default"):
+        if not row[key] <= 1e-2:
+            raise RuntimeError(f"VAE card vs CPU: {key} = {row[key]} > 1e-2")
+
+
+LATENT_TRAIN_STEPS = {"pre_encoded": 3, "vae_online": 2}
+
+
+def phase_latent_train(ckpt_root, vae, card):
+    """TrainLoop on the latent config: steps over an EncodedNpyDataset of
+    seeded latents in a temporary directory, then steps with VAECodec
+    encoding 256 px synthetic frames on the card. Finite losses and 7 + 7 +
+    8 launches per step on the rules' routes."""
+    import numpy as np
+
+    from lfvdm_tpu_torch.data.datasets import EncodedNpyDataset, batch_generator, load_data
+    from lfvdm_tpu_torch.diffusion.codecs import PreEncodedLatentCodec, VAECodec
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_latents_", dir=ckpt_root)
+    try:
+        rng = np.random.default_rng(23)
+        for i in range(4):
+            np.save(os.path.join(tmp, f"{i}.npy"),
+                    rng.standard_normal((LATENT_VIDEO_T, 4, 32, 32)).astype(np.float32))
+        data = batch_generator(EncodedNpyDataset(tmp, T=LATENT_VIDEO_T), LATENT_B, seed=0)
+        counts = _latent_steps("pre_encoded", data, PreEncodedLatentCodec(*latent_stats()),
+                               ckpt_root, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    data = load_data("synthetic", batch_size=LATENT_B, T=LATENT_VIDEO_T, image_size=256)
+    _latent_steps("vae_online", data, TimedEncode(VAECodec(vae=vae)), ckpt_root, card)
+    return counts
+
+
+def _latent_steps(kind, data, codec, ckpt_dir, card):
+    """``LATENT_TRAIN_STEPS[kind]`` steps of a new TrainLoop (nothing is
+    saved to ``ckpt_dir``); returns their launch counts and routes."""
+    import torch
+
+    from lfvdm_tpu_torch.config import create_model_and_diffusion, latent_config
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.training.train_loop import TrainLoop
+
+    cfg = latent_config()
+    model, diffusion = create_model_and_diffusion(cfg, device="cuda", seed=0)
+    loop = TrainLoop(model=model, diffusion=diffusion, data=data, batch_size=LATENT_B,
+                     max_frames=LATENT_K, lr=1e-4, log_interval=1000, save_interval=0,
+                     checkpoint_dir=ckpt_dir, config=cfg, seed=0, codec=codec)
+    steps = LATENT_TRAIN_STEPS[kind]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    step_s, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = loop.run_step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        loop.step += 1
+        losses.append(metrics["loss"].float().cpu().tolist())
+    launches, routes = read_counts()
+    row = {"phase": "latent_train", "card": card, "data": kind, "B": LATENT_B, "K": LATENT_K,
+           "dtype": cfg["compute_dtype"], "steps": steps,
+           "ms_per_step": [x * 1e3 for x in step_s], "losses": losses,
+           "launches": launches, "routes": routes,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if isinstance(codec, TimedEncode):
+        row["frames_px"] = 256
+        row["encode_host_ms_per_step"] = [x * 1e3 for x in codec.encode_s]
+    emit(row)
+    if not all(math.isfinite(x) for step in losses for x in step):
+        raise RuntimeError(f"latent training ({kind}): non-finite loss {losses}")
+    _check_launches(launches, routes, steps, LATENT_PER_FORWARD, latent_route_counts(_sms()))
+    return launches, routes
+
+
+def phase_latent(ckpt_root, card):
+    """The latent path's phases; returns its sampling and training launch
+    counts and routes by path."""
+    import torch
+
+    from lfvdm_tpu_torch.models.vae import SVDVae
+
+    cfg, model, diffusion = latent_model("cuda")
+    phase_unet(cfg, model, latent=True)
+    phase_profile(cfg, model, forwards=10, path="latent", window=LATENT_WINDOW)
+    with torch_tf32_defaults():
+        vae = SVDVae(seed=0, device="cuda")
+        sample = phase_latent_sample(cfg, model, diffusion, vae, card)
+        del model
+        phase_vae_cpu(vae, card)
+        train = phase_latent_train(ckpt_root, vae, card)
+    del vae
+    torch.cuda.empty_cache()
+    return {"latent_sample": sample, "latent_train": train}
+
 # ---------------------------------------------------------------------------
 
 
@@ -1066,7 +1439,7 @@ def main() -> int:
     sys.path.insert(0, here)
     t_start = time.perf_counter()
 
-    phase_device()
+    card = phase_device()
     phase_build()
     results = phase_kernels()
     cfg, model, diffusion = flagship_model("cuda")
@@ -1082,8 +1455,12 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     phase_train_parity()
-    emit(kernels_line(results, {"train": train_launches, "sample_video": sample_launches},
-                      {"train": train_routes, "sample_video": sample_routes}))
+    latent = phase_latent(ckpt_root, card)
+    launches = {"train": train_launches, "sample_video": sample_launches}
+    routes = {"train": train_routes, "sample_video": sample_routes}
+    for path, (c, r) in latent.items():
+        launches[path], routes[path] = c, r
+    emit(kernels_line(results, launches, routes))
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -78,6 +78,15 @@ def flagship_config(tiny: bool = False) -> Dict[str, Any]:
                 compute_dtype="bfloat16")
 
 
+def latent_config() -> Dict[str, Any]:
+    """The latent config: the reference's latent command (pre-encoded 32x32
+    C4 SVD-VAE latents, 64 channels, 1 res block, bf16 torso), run at B = 1,
+    K = 5 (its ``--batch_size 1 --max_frames 5``)."""
+    return dict(image_size=32, in_channels=4, num_channels=64, num_res_blocks=1,
+                attention_resolutions="16,8", diffusion_steps=1000,
+                compute_dtype="bfloat16", diffusion_space="latent", pre_encoded=True)
+
+
 def create_model(
     image_size: int,
     in_channels: int,

@@ -1,18 +1,141 @@
-"""Video datasets (host side, numpy): the synthetic part of
-lfvdm_tpu/data/datasets.py.
+"""Video datasets (host side, numpy): the synthetic and pre-encoded latent
+parts of lfvdm_tpu/data/datasets.py.
 
 ``SyntheticVideoDataset`` and ``SyntheticLongRangeDataset`` are copies of the
-JAX package's classes, and ``load_data`` serves the two ``synthetic`` names
-single-process. The file-backed datasets (CARLA, MineRL, GQN mazes, the
-encoded latents), ``get_test_dataset``, process sharding, the background
-prefetch thread and the native loader are not ported yet.
+JAX package's classes. The latent path's pieces are ported too:
+``load_encoding_stats`` (the channel-wise latent norm stats of a pre-encoded
+dataset), the one-file-per-video base classes with their DATA_ROOT scratch
+cache, and ``EncodedNpyDataset``. ``load_data`` serves ``synthetic``,
+``synthetic_longrange`` and ``synthetic_encoded`` single-process. The CARLA,
+MineRL and GQN-mazes datasets, ``get_test_dataset``, process sharding, the
+background prefetch thread and the native loader are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+from pathlib import Path
 from typing import Iterator, Optional
 
 import numpy as np
+
+from ..utils.locks import Protect
+
+video_data_paths_dict = {
+    # Synthetic videos at 256 px, SVD-VAE-encoded offline to 32x32 C4
+    # latents (the reference's latent config shape); built by the JAX
+    # package's benchmarks/prep_synthetic_latent.py.
+    "synthetic_encoded": "datasets/synthetic-encoded",
+}
+
+default_T_dict = {"synthetic_encoded": 100}
+
+data_encoding_stats_dict = {
+    "carla_no_traffic_2x_encoded": "datasets/carla/no-traffic-encoded/encoded_train_norm_stats.pt",
+    "synthetic_encoded": "datasets/synthetic-encoded/encoded_train_norm_stats.pt",
+}
+
+
+def _data_root_path(rel_path: str) -> str:
+    root = os.environ.get("DATA_ROOT", "")
+    return os.path.join(root, rel_path) if root else rel_path
+
+
+def load_encoding_stats(dataset_name: Optional[str]):
+    """Channel-wise latent norm stats ``{"mean", "std"}`` (numpy (C,)) of a
+    pre-encoded dataset, or None.
+
+    The registry path resolves under DATA_ROOT like every dataset path;
+    where the scratch cache does not hold the file yet, the source layout
+    is read directly rather than training with identity stats.
+    """
+    rel = data_encoding_stats_dict.get(dataset_name)
+    if not rel:
+        return None
+    path = _data_root_path(rel)
+    if not os.path.exists(path):
+        if path != rel and os.path.exists(rel):
+            path = rel
+        else:
+            return None
+    import torch
+
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    return {"mean": raw["mean"].numpy(), "std": raw["std"].numpy()}
+
+
+class BaseVideoDataset:
+    """One file per video; optional DATA_ROOT scratch-dir caching."""
+
+    def __init__(self, path, T: Optional[int]):
+        self.T = T
+        self.path = Path(path)
+        self.is_test = False
+
+    def __len__(self):
+        return len(list(self.get_src_path(self.path).iterdir()))
+
+    def __getitem__(self, idx) -> np.ndarray:
+        path = self.getitem_path(idx)
+        self.cache_file(path)
+        video = self.postprocess_video(self.loaditem(path))
+        return self.get_video_subsequence(video, self.T)
+
+    def getitem_path(self, idx) -> Path:
+        raise NotImplementedError
+
+    def loaditem(self, path):
+        raise NotImplementedError
+
+    def postprocess_video(self, video) -> np.ndarray:
+        raise NotImplementedError
+
+    def cache_file(self, path: Path):
+        if not path.exists():
+            path.parent.mkdir(parents=True, exist_ok=True)
+            src_path = self.get_src_path(path)
+            with Protect(path):
+                shutil.copyfile(str(src_path), str(path))
+
+    @staticmethod
+    def get_src_path(path: Path) -> Path:
+        if os.environ.get("DATA_ROOT"):
+            data_root = Path(os.environ["DATA_ROOT"])
+            if data_root in path.parents:
+                return Path(*path.parts[len(data_root.parts):])
+        return path
+
+    def set_test(self):
+        self.is_test = True
+
+    def get_video_subsequence(self, video: np.ndarray, T: Optional[int]) -> np.ndarray:
+        if T is None or T >= len(video):
+            return video
+        start = 0 if self.is_test else np.random.randint(len(video) - T + 1)
+        return video[start:start + T]
+
+
+class NpyPerVideoDataset(BaseVideoDataset):
+    """{idx}.npy uint8 (T, H, W, C) videos -> float (T, C, H, W) in [-1, 1]."""
+
+    def getitem_path(self, idx):
+        return self.path / f"{idx}.npy"
+
+    def loaditem(self, path):
+        return np.load(path)
+
+    def postprocess_video(self, video):
+        video = video.astype(np.float32) / 255.0
+        return 2 * video.transpose(0, 3, 1, 2) - 1
+
+
+class EncodedNpyDataset(NpyPerVideoDataset):
+    """{idx}.npy float32 (T, C, h, w) pre-encoded NORMALIZED latents; items
+    pass through untouched (the normalization happened offline)."""
+
+    def postprocess_video(self, video):
+        return np.asarray(video, dtype=np.float32)
 
 
 class SyntheticVideoDataset:
@@ -146,35 +269,54 @@ class SyntheticLongRangeDataset(SyntheticVideoDataset):
         return vid
 
 
-def _build_dataset(dataset_name, T, image_size):
+def _build_dataset(dataset_name, T, image_size, num_shards=1):
     size = {} if image_size is None else dict(H=image_size, W=image_size)
     if dataset_name == "synthetic":
-        ds = SyntheticVideoDataset(T=T or 100, **size)
-    elif dataset_name == "synthetic_longrange":
-        ds = SyntheticLongRangeDataset(T=T or 100, **size)
-    else:
-        raise ValueError(f"unknown or not yet ported dataset: {dataset_name}")
-    return ds
+        return SyntheticVideoDataset(T=T or 100, **size)
+    if dataset_name == "synthetic_longrange":
+        return SyntheticLongRangeDataset(T=T or 100, **size)
+    if dataset_name == "synthetic_encoded":
+        if num_shards != 1:
+            raise ValueError("synthetic_encoded is not shardable (single dir): "
+                             f"{num_shards} processes would all read the same rows")
+        if image_size is not None:
+            raise ValueError("synthetic_encoded has the size its files have; pass no image_size")
+        path = _data_root_path(video_data_paths_dict[dataset_name])
+        return EncodedNpyDataset(os.path.join(path, "train"),
+                                 T=default_T_dict[dataset_name] if T is None else T)
+    raise ValueError(f"unknown or not yet ported dataset: {dataset_name}")
+
+
+def _process_count() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def load_data(dataset_name: str, batch_size: int, T: Optional[int] = None,
               deterministic: bool = False, return_dataset: bool = False, seed: int = 0,
               image_size: Optional[int] = None):
-    """Infinite batch generator over the ``synthetic`` datasets.
+    """Infinite batch generator over the ported datasets.
 
     Yields float32 (B, T, C, H, W) numpy batches forever (drop_last: an epoch
     is a shuffled pass, ``deterministic`` keeps the dataset order). T defaults
-    to 100 frames. ``image_size`` sets H = W (the JAX package's generator
-    always renders its default 64); None keeps that default.
+    to 100 frames. ``image_size`` sets H = W of the synthetic videos (the JAX
+    package's generator always renders its default 64); None keeps that
+    default. ``synthetic_encoded`` reads ``{idx}.npy`` latents from the
+    registry's ``train`` directory under DATA_ROOT; it refuses to run in
+    more than one process, as every process would read the same rows.
     """
-    dataset = _build_dataset(dataset_name, T, image_size)
+    dataset = _build_dataset(dataset_name, T, image_size, _process_count())
     if return_dataset:
         return dataset
-    return _batch_generator(dataset, batch_size, deterministic, seed)
+    return batch_generator(dataset, batch_size, deterministic, seed)
 
 
-def _batch_generator(dataset, batch_size: int, deterministic: bool,
-                     seed: int) -> Iterator[np.ndarray]:
+def batch_generator(dataset, batch_size: int, deterministic: bool = False,
+                    seed: int = 0) -> Iterator[np.ndarray]:
+    """Batches of ``batch_size`` items of ``dataset`` forever (drop_last;
+    each epoch shuffled by a numpy generator from ``seed`` unless
+    ``deterministic``)."""
     rng = np.random.default_rng(seed)
     order = np.arange(len(dataset))
     while True:

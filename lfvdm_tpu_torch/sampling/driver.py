@@ -6,8 +6,11 @@ and scatter the generated frames back into the video buffer. Windows run at
 their exact size: the attention pre-norm statistics include every frame of a
 window, so padding would perturb real frames.
 
-Not ported yet: the attention-weight sampler, encoder reuse, latent codecs
-and a device mesh.
+Sampling happens in diffusion space; with a ``codec`` (``diffusion/codecs.py``)
+the assembled video is decoded once at the end (to pixels through the VAE in
+latent space, out of the subbands in wavelet space).
+
+Not ported yet: the attention-weight sampler, encoder reuse and a device mesh.
 """
 
 from __future__ import annotations
@@ -24,15 +27,17 @@ from .schemes import sampling_schemes
 
 class VideoSampler:
     """Samples windows and long videos with ``model`` (an ``nn.Module`` on
-    the sampling device) under ``diffusion``."""
+    the sampling device) under ``diffusion``; ``codec`` decodes a sampled
+    video out of diffusion space."""
 
     def __init__(self, model: torch.nn.Module, diffusion: GaussianDiffusion, *,
                  clip_denoised: bool = True, use_ddim: bool = False, use_dpm: bool = False,
-                 eta: float = 0.0):
+                 eta: float = 0.0, codec=None):
         if use_ddim and use_dpm:
             raise ValueError("pick one of use_ddim / use_dpm")
         self.model = model
         self.diffusion = diffusion
+        self.codec = codec
         self.device = next(model.parameters()).device
         self.clip_denoised = clip_denoised
         self.use_ddim = use_ddim
@@ -85,7 +90,10 @@ class VideoSampler:
 
         ``batch``: (B, T, C, H, W) ground-truth videos in diffusion space
         (only the first n_obs frames are read unless ``just_get_indices``).
-        Returns (samples numpy, indices_used list).
+        Returns (samples numpy, indices_used list). With a codec the
+        assembled video is uploaded to the sampler's device once and
+        decoded there (unless ``just_get_indices``), so the samples are in
+        pixel space, (B, T, 3, H', W') for the latent codecs.
         """
         B, T, C, H, W = batch.shape
         samples = np.zeros_like(batch)
@@ -129,4 +137,7 @@ class VideoSampler:
             for b in range(B):
                 samples[b, latent_idx[b]] = local[b, -n_latent:]
             indices_used.append((obs_idx, latent_idx))
+        if self.codec is not None and not just_get_indices:
+            decoded = self.codec.decode(torch.as_tensor(samples, device=self.device))
+            samples = decoded.cpu().numpy()
         return samples, indices_used

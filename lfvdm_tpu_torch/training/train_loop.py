@@ -244,7 +244,11 @@ class TrainLoop:
     sampling cadence. The model's device is the training device.
 
     ``init_params``: a ``state_dict`` to start from (a fine-tune; its names
-    and shapes must match the model's). ``profile_dir``: a ``torch.profiler``
+    and shapes must match the model's). ``codec`` (``diffusion/codecs.py``)
+    maps each prepared batch into diffusion space: ``VAECodec`` encodes the
+    chosen frames on the training device (the mean of each frame's latent
+    distribution, as the JAX loop does with no key); the pre-encoded codec's
+    encode is the identity. ``profile_dir``: a ``torch.profiler``
     trace of steps [profile_start_step, + profile_num_steps) is written there.
     """
 
@@ -275,6 +279,7 @@ class TrainLoop:
         profile_dir: Optional[str] = None,
         profile_start_step: int = 10,
         profile_num_steps: int = 5,
+        codec=None,
     ):
         self.model = model
         self.device = next(model.parameters()).device
@@ -295,6 +300,7 @@ class TrainLoop:
         self.sample_interval = sample_interval
         self.lr_anneal_steps = lr_anneal_steps
         self.pad_with_random_frames = pad_with_random_frames
+        self.codec = codec
         self.schedule_sampler = schedule_sampler or UniformSampler(diffusion)
         self.checkpoint_dir = checkpoint_dir
         self.config = config or {}
@@ -350,16 +356,20 @@ class TrainLoop:
     def _next_batch(self) -> np.ndarray:
         return np.asarray(next(self.data))
 
-    def _prepare(self, batch1, batch2) -> Dict[str, np.ndarray]:
+    def _prepare(self, batch1, batch2) -> Dict:
+        """Frames and masks of one step (numpy); with a codec, x0 is encoded
+        after the frames are chosen and stays a tensor on the device."""
         x0, fi, obs, lat = sample_training_batch(
             self.host_rng, batch1, self.max_frames,
             batch2=batch2 if self.pad_with_random_frames else None,
             pad_with_random_frames=self.pad_with_random_frames)
-        return {"x0": x0.astype(np.float32), "frame_indices": fi, "obs_mask": obs,
-                "latent_mask": lat}
+        x0 = x0.astype(np.float32)
+        if self.codec is not None:
+            x0 = self.codec.encode(torch.as_tensor(x0, device=self.device))
+        return {"x0": x0, "frame_indices": fi, "obs_mask": obs, "latent_mask": lat}
 
-    def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """A prepared numpy batch as tensors on the training device."""
+    def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """A prepared batch as tensors on the training device."""
         dev = self.device
         return {"x0": torch.as_tensor(batch["x0"], dtype=torch.float32, device=dev),
                 "frame_indices": torch.as_tensor(batch["frame_indices"], dtype=torch.int64,

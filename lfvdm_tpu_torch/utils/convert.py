@@ -6,10 +6,14 @@ names of ``lfvdm_tpu_torch.models.unet.UNetVideoModel`` (the reference
 checkpoint's names), so a JAX checkpoint loads with ``load_state_dict``.
 ``train_state_from_jax`` maps a whole JAX train state (params, EMA copies,
 optax Adam state, step) onto the port's ``TrainState.state_dict()`` format.
+``vae_state_dict_from_jax`` maps the JAX SVD VAE's encoder and decoder
+variables onto ``models/vae.py``'s (diffusers') names: the exact inverse of
+``scripts/convert_svd_vae.py``'s ``convert``.
 
 Layouts:
   flax Dense kernel (in, out)         -> torch Linear weight (out, in)
   flax Conv kernel (kh, kw, in, out)  -> torch Conv2d weight (out, in, kh, kw)
+  flax 3-D Conv kernel (kt, kh, kw, in, out) -> Conv3d weight (out, in, kt, kh, kw)
   GroupNorm32 scale/bias              -> GroupNorm weight/bias
 """
 
@@ -177,3 +181,82 @@ def train_state_from_jax(state: Mapping, *, num_res_blocks: int, channel_mult,
         "schedule_count": schedule_count,
         "step": int(np.asarray(state["step"])),
     }
+
+
+# ---------------------------------------------------------------------------
+# The SVD VAE
+# ---------------------------------------------------------------------------
+
+
+def _conv_nd(sd, prefix, p):
+    """A flax Conv of any rank: kernel (*spatial, in, out) -> (out, in, *spatial)."""
+    kernel = np.asarray(p["kernel"])
+    n = kernel.ndim
+    sd[f"{prefix}.weight"] = _t(kernel.transpose(n - 1, n - 2, *range(n - 2)))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _vae_resnet(sd, prefix, p):
+    for name in ("norm1", "norm2"):
+        _gn(sd, f"{prefix}.{name}", p[name])
+    for name in ("conv1", "conv2", "conv_shortcut"):
+        if name in p:
+            _conv_nd(sd, f"{prefix}.{name}", p[name])
+
+
+def _vae_attn(sd, prefix, p):
+    _gn(sd, f"{prefix}.group_norm", p["group_norm"])
+    for name in ("to_q", "to_k", "to_v"):
+        _lin(sd, f"{prefix}.{name}", p[name])
+    _lin(sd, f"{prefix}.to_out.0", p["to_out"])
+
+
+def _vae_st_resblock(sd, prefix, p):
+    _vae_resnet(sd, f"{prefix}.spatial_res_block", p["spatial_res_block"])
+    _vae_resnet(sd, f"{prefix}.temporal_res_block", p["temporal_res_block"])
+    sd[f"{prefix}.time_mixer.mix_factor"] = _t(np.asarray(p["mix_factor"]).reshape(1))
+
+
+def vae_state_dict_from_jax(enc_vars: Mapping, dec_vars: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Encoder`` and ``TemporalDecoder`` variables
+    (``{"params": ...}`` or the inner dicts, numpy leaves) -> the state dict
+    of ``models.vae.SVDVae``, with diffusers' names. The JAX encoder ends in
+    ``quant_conv``; here, as in diffusers, the VAE holds it."""
+    enc, dec = _unwrap(enc_vars), _unwrap(dec_vars)
+    sd: Dict[str, torch.Tensor] = {}
+    _conv_nd(sd, "encoder.conv_in", enc["conv_in"])
+    i = 0
+    while f"down_{i}_res_0" in enc:
+        j = 0
+        while f"down_{i}_res_{j}" in enc:
+            _vae_resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}", enc[f"down_{i}_res_{j}"])
+            j += 1
+        if f"down_{i}_downsample" in enc:
+            _conv_nd(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv",
+                     enc[f"down_{i}_downsample"]["conv"])
+        i += 1
+    _vae_resnet(sd, "encoder.mid_block.resnets.0", enc["mid_res_1"])
+    _vae_attn(sd, "encoder.mid_block.attentions.0", enc["mid_attn"])
+    _vae_resnet(sd, "encoder.mid_block.resnets.1", enc["mid_res_2"])
+    _gn(sd, "encoder.conv_norm_out", enc["conv_norm_out"])
+    _conv_nd(sd, "encoder.conv_out", enc["conv_out"])
+    _conv_nd(sd, "quant_conv", enc["quant_conv"])
+
+    _conv_nd(sd, "decoder.conv_in", dec["conv_in"])
+    _vae_st_resblock(sd, "decoder.mid_block.resnets.0", dec["mid_res_1"])
+    _vae_attn(sd, "decoder.mid_block.attentions.0", dec["mid_attn"])
+    _vae_st_resblock(sd, "decoder.mid_block.resnets.1", dec["mid_res_2"])
+    i = 0
+    while f"up_{i}_res_0" in dec:
+        j = 0
+        while f"up_{i}_res_{j}" in dec:
+            _vae_st_resblock(sd, f"decoder.up_blocks.{i}.resnets.{j}", dec[f"up_{i}_res_{j}"])
+            j += 1
+        if f"up_{i}_upsample" in dec:
+            _conv_nd(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv",
+                     dec[f"up_{i}_upsample"]["conv"])
+        i += 1
+    _gn(sd, "decoder.conv_norm_out", dec["conv_norm_out"])
+    _conv_nd(sd, "decoder.conv_out", dec["conv_out"])
+    _conv_nd(sd, "decoder.time_conv_out", dec["time_conv_out"])
+    return sd

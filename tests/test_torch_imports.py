@@ -2,16 +2,20 @@
 
 An AST scan of every module of ``lfvdm_tpu_torch`` and of ``chip_smoke.py``
 (which runs on a machine without JAX) for ``import`` statements naming
-``jax``, ``flax``, ``optax``, ``orbax`` or ``lfvdm_tpu``.
+``jax``, ``flax``, ``optax``, ``orbax``, ``lfvdm_tpu``, the repo's
+``scripts`` or ``diffusers`` (on neither machine); and the latent slice's
+modules imported in a fresh interpreter where those names cannot be found.
 """
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "lfvdm_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "lfvdm_tpu", "scripts", "diffusers")
 FILES = sorted((ROOT / "lfvdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -35,7 +39,9 @@ def test_scan_covers_the_package():
     for expected in ("lfvdm_tpu_torch/config.py", "lfvdm_tpu_torch/models/unet.py",
                      "lfvdm_tpu_torch/ops/attention.py", "lfvdm_tpu_torch/sampling/driver.py",
                      "lfvdm_tpu_torch/ops/skipconv.py", "lfvdm_tpu_torch/training/train_loop.py",
-                     "lfvdm_tpu_torch/training/checkpoint.py", "chip_smoke.py"):
+                     "lfvdm_tpu_torch/training/checkpoint.py", "lfvdm_tpu_torch/models/vae.py",
+                     "lfvdm_tpu_torch/diffusion/codecs.py", "lfvdm_tpu_torch/diffusion/wavelet.py",
+                     "lfvdm_tpu_torch/data/datasets.py", "chip_smoke.py"):
         assert expected in names
 
 
@@ -48,4 +54,33 @@ def test_no_jax_imports(path):
 def test_forbidden_matches_only_the_jax_side():
     assert _forbidden("jax.numpy") and _forbidden("flax.linen") and _forbidden("lfvdm_tpu.ops")
     assert _forbidden("optax") and _forbidden("orbax.checkpoint")
+    assert _forbidden("scripts.convert_svd_vae") and _forbidden("diffusers")
     assert not _forbidden("lfvdm_tpu_torch.ops") and not _forbidden("torch")
+
+
+BLOCKER = """
+import importlib.abc, sys
+BLOCKED = {blocked!r}
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+sys.meta_path.insert(0, Block())
+import lfvdm_tpu_torch.models.vae, lfvdm_tpu_torch.diffusion.codecs
+import lfvdm_tpu_torch.diffusion.wavelet, lfvdm_tpu_torch.data.datasets
+import lfvdm_tpu_torch.utils.convert, lfvdm_tpu_torch.sampling.driver
+import lfvdm_tpu_torch.training.train_loop, lfvdm_tpu_torch.config, chip_smoke
+bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_latent_modules_import_with_jax_blocked():
+    code = BLOCKER.format(blocked=FORBIDDEN)
+    run = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert run.returncode == 0 and run.stdout.strip() == "ok", run.stderr

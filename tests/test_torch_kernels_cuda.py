@@ -58,6 +58,9 @@ def _temporal(gen, B, H, T, F, D, dtype, n_pad):
     (1, 3, 64, 16, 5, 7),     # two full key chunks, fewer sites than a warp
     (2, 4, 20, 96, 256, 2),   # flagship ds 8
     (2, 4, 20, 128, 64, 2),   # flagship ds 16
+    (1, 4, 5, 32, 256, 0),    # latent ds 2: 5 frames, one query block
+    (1, 4, 5, 32, 64, 2),     # latent ds 4, padding frames
+    (1, 4, 5, 32, 16, 0),     # latent middle block: 16 sites, half a warp
 ])
 def test_temporal_kernel_matches_plain(cuda, dtype, B, H, T, F, D, n_pad):
     args = _temporal(cuda, B, H, T, F, D, dtype, n_pad)
@@ -104,6 +107,9 @@ def _check_spatial(q, k, v, route):
     (1, 2, 3, 65, 33),        # one past a tile, odd width
     (2, 1, 2, 200, 128),      # widest head, ragged last tile
     (2, 20, 4, 64, 128),      # flagship ds 16
+    (1, 5, 4, 256, 32),       # latent ds 2
+    (1, 5, 4, 64, 32),        # latent ds 4: one query block
+    (1, 5, 4, 16, 32),        # latent middle block: a quarter of a tile
 ])
 def test_spatial_kernel_matches_plain(cuda, dtype, B, T, H, D, F):
     route = "mma" if dtype == torch.bfloat16 and F % 16 == 0 else "fma"
@@ -112,6 +118,7 @@ def test_spatial_kernel_matches_plain(cuda, dtype, B, T, H, D, F):
 
 @pytest.mark.parametrize("B,T,H,D,F", [
     *[(2, 1, 3, D, F) for D in (1, 65, 200) for F in (16, 96, 128)],  # ragged D, each width
+    *[(2, 1, 3, D, 32) for D in (1, 16, 65, 200)],  # the latent config's width
     (2, 20, 4, 256, 96),      # flagship ds 8
 ])
 def test_spatial_mma_route_matches_plain(cuda, B, T, H, D, F):
@@ -245,6 +252,8 @@ def _check_skipconv(args, route):
     (1, 96, 130, 200, 13, 11),  # K past several 32-deep slices, ragged F and P
     (40, 512, 384, 512, 8, 8),  # flagship ds 16, block 1
     (4, 128, 128, 128, 64, 64),  # flagship ds 2, block 1 (4 of the 40 frames)
+    (5, 128, 128, 128, 4, 4),    # latent middle level: 16 pixels
+    (5, 128, 64, 64, 32, 32),    # latent ds 1, block 0
 ])
 def test_skip_conv_kernel_matches_plain(cuda, dtype, N, c1, c2, F, H, W):
     args = _skipconv_inputs(cuda, N, c1, c2, F, H, W, dtype)
@@ -265,6 +274,13 @@ BULK_CASES = {
     "streaming-many-tiles": ((12, 256, 256, 256, 32, 32), (False, 128)),
     "ds1-n4": ((4, 128, 128, 128, 128, 128), (True, 128)),
     "ds16-flagship": ((40, 512, 512, 512, 8, 8), (False, 64)),
+    # The latent config's 6 distinct up-path shapes (B·K = 5 frames).
+    "latent-ds8": ((5, 128, 128, 128, 4, 4), (True, 64)),
+    "latent-ds4": ((5, 128, 128, 128, 8, 8), (True, 64)),
+    "latent-ds2": ((5, 128, 128, 128, 16, 16), (True, 128)),
+    "latent-ds2-c2-64": ((5, 128, 64, 128, 16, 16), (True, 128)),
+    "latent-ds1-f-64": ((5, 128, 64, 64, 32, 32), (True, 128)),
+    "latent-ds1-k-128": ((5, 64, 64, 64, 32, 32), (True, 128)),
 }
 
 
@@ -296,6 +312,7 @@ def test_skip_conv_plan_matches_the_library(cuda):
 
     sms = skipconv._sm_count(0)
     sizes = [(40, c1, c2, F, S * S) for _, c1, c2, F, S in chip_smoke.SKIP_SHAPES]
+    sizes += [(5, c1, c2, F, S * S) for _, c1, c2, F, S in chip_smoke.LATENT_SKIP_SHAPES]
     sizes += [(N, c1, c2, F, H * W) for (N, c1, c2, F, H, W), _ in BULK_CASES.values()]
     sizes += [(2, 17, 5, 9, 35), (3, 32, 32, 64, 66), (1, 16, 16, 8, 64)]
     for size in sizes:
