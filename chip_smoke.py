@@ -37,11 +37,14 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                are reset just before and read just after; each must equal
                7 + 7 + 10 per model call, on the same routes.
   6. train   — the training path: TrainLoop on the flagship config (B=2, K=20,
-               bf16) over the synthetic dataset at 128 px: warm-up steps, then
-               timed steps (finite losses, parameters move, the EMA formula,
-               7 + 7 + 10 launches per step), one step in two microbatches, one
-               non-finite step that changes nothing, a checkpoint save and
-               resume, and a profile of one step by kernel group.
+               bf16) over the synthetic dataset at 128 px (prefetched on a
+               thread): warm-up steps, then timed steps (finite losses,
+               parameters move, the EMA formula, 7 + 7 + 10 launches per step;
+               the host batch time inside each step), the host batch time
+               without the prefetch (three draws back to back), one step in
+               two microbatches, one non-finite step that changes nothing, a
+               checkpoint save and resume, and a profile of one step by kernel
+               group.
   7. parity  — one train step's loss and gradients on the kernel path against
                impl="plain", in bf16 and in f32 (TF32 off).
   8. latent  — the latent path (config.latent_config(): 32x32 C4 SVD-VAE
@@ -67,7 +70,25 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                            temporary directory and removed), then 2 steps with
                            VAECodec encoding 256 px frames online.
                The VAE phases run at PyTorch's default TF32 settings.
-  9. the "kernels" summary line, then {"ok": true, "device": {...}} last.
+  9. cli     — the entry points' main(argv), in process, at the flagship's
+               full width, on a seeded CARLA-layout fixture (8 train and 4 test
+               uint8 (100, 128, 128, 3) .pt videos, .npy siblings for the train
+               split) in a temporary DATA_ROOT:
+               a. video_sample on a reference-format .pt of the flagship model
+                  (hierarchy-2, T=60, 10 observed, K=20, B=2, DDIM 25): two uint8
+                  (60, 3, 128, 128) files whose observed frames are the test
+                  videos' exactly; a second run writes nothing;
+               b. video_train with the flags that give the flagship config, 4
+                  steps served by the native loader, finite losses, a run
+                  directory with config.json, the parameters and the EMA; the
+                  vis sampler (make_sample_fn, 25 ancestral steps; gifs where
+                  PIL is present) on the trained loop;
+               c. video_sample on the run directory's raw weights, one window;
+               d. ms per batch of the native, the Python-thread and the
+                  synchronous loaders, and the train step's host batch time with
+                  the prefetch against the synchronous generator.
+               Every model call launches 7 + 7 + 10 kernels on "mma"/"bulk".
+ 10. the "kernels" summary line, then {"ok": true, "device": {...}} last.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the lfvdm_tpu_torch package is not beside this script.
@@ -952,7 +973,7 @@ def phase_train(ckpt_dir):
     import torch
 
     from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
-    from lfvdm_tpu_torch.data.datasets import load_data
+    from lfvdm_tpu_torch.data.datasets import batch_generator, load_data
     from lfvdm_tpu_torch.ops import attention as ops
     from lfvdm_tpu_torch.training.train_loop import TrainLoop, train_step
 
@@ -982,15 +1003,16 @@ def phase_train(ckpt_dir):
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     step_s, losses = [], []
-    for i in range(TRAIN_STEPS):
-        if i == TRAIN_STEPS - 1:
-            e_before = loop.state.ema[rate][ema_leaf].clone()
-        t0 = time.perf_counter()
-        metrics = loop.run_step()
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        loop.step += 1
-        losses.append(metrics["loss"].float().cpu().tolist())
+    with timed_draws(loop) as batch_s:  # the host batch time inside each step, prefetching
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_STEPS - 1:
+                e_before = loop.state.ema[rate][ema_leaf].clone()
+            t0 = time.perf_counter()
+            metrics = loop.run_step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            loop.step += 1
+            losses.append(metrics["loss"].float().cpu().tolist())
     launches, routes = read_counts()
     peak = torch.cuda.max_memory_allocated()
     r = float(rate)
@@ -998,12 +1020,16 @@ def phase_train(ckpt_dir):
     ema_err = (loop.state.ema[rate][ema_leaf] - want_ema).abs().max().item()
     moved = max((p.detach() - p_before[n]).abs().max().item() for n, p in named.items())
 
-    # The host's share of a step: drawing, masking and uploading one batch.
-    t0 = time.perf_counter()
-    for _ in range(3):
-        loop.next_step_inputs()
-    torch.cuda.synchronize()
-    prep_ms = (time.perf_counter() - t0) / 3 * 1e3
+    # The host's share of a step without the prefetch: drawing, masking and
+    # uploading one batch, three times back to back, from the synchronous
+    # generator over the same (rendered) videos.
+    videos = load_data("synthetic", batch_size=FLAGSHIP_B, image_size=cfg["image_size"],
+                       return_dataset=True)
+    for i in range(len(videos)):
+        videos[i]
+    prefetching, loop.data = loop.data, batch_generator(videos, FLAGSHIP_B)
+    prep_ms = _host_batch_ms_back_to_back(loop, 3)
+    loop.data = prefetching
 
     # One step in two microbatches: twice the forwards.
     batch, t, w, _, _ = loop.next_step_inputs()
@@ -1038,7 +1064,9 @@ def phase_train(ckpt_dir):
            "dtype": cfg["compute_dtype"], "dataset": "synthetic 128 px, T=100",
            "warmup_steps": TRAIN_WARMUP, "warmup_s": warm_s, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in step_s],
            "mean_ms_per_step": sum(step_s) / len(step_s) * 1e3,
-           "peak_mem_gib": peak / 2**30, "host_batch_prep_ms": prep_ms, "losses": losses, "param_max_change": moved,
+           "peak_mem_gib": peak / 2**30, "host_batch_prep_ms": prep_ms,
+           "host_batch_ms_in_step_prefetch": [x * 1e3 for x in batch_s],
+           "losses": losses, "param_max_change": moved,
            "ema_formula_max_abs_err": ema_err, "launches": launches, "routes": routes,
            "microbatch_launches": micro_launches,
            "microbatch_loss": m2["weighted_loss"].item(),
@@ -1423,6 +1451,337 @@ def phase_latent(ckpt_root, card):
     return {"latent_sample": sample, "latent_train": train}
 
 # ---------------------------------------------------------------------------
+# Phase 9: the entry points — the video_sample and video_train CLIs
+# ---------------------------------------------------------------------------
+
+CLI_DATASET = "carla_no_traffic"
+CLI_VIDEO_T, CLI_TRAIN_VIDEOS, CLI_TEST_VIDEOS = 100, 8, 4
+CLI_SAMPLE = dict(T=60, n_obs=10, max_frames=FLAGSHIP_K, batch_size=FLAGSHIP_B,
+                  scheme="hierarchy-2", respacing="ddim25")
+CLI_TRAIN_STEPS = 4
+CLI_LOADER_BATCHES = 8
+# The keys of the reference's own config (its script_util defaults): the
+# port's and the TPU package's extra model keys are not in a reference .pt.
+REFERENCE_ONLY_DROPS = ("compute_dtype", "fused_skip_conv", "wavelet_levels")
+
+
+def write_carla_fixture(data_root, seed=30, size=128, T=CLI_VIDEO_T, n_train=CLI_TRAIN_VIDEOS,
+                        n_test=CLI_TEST_VIDEOS, npy=True):
+    """The CARLA layout under ``data_root`` (the registry's
+    datasets/carla/no-traffic): video_{train,test}.csv and uint8 (T, size,
+    size, 3) ``.pt`` videos drawn from ``seed``, with ``.npy`` siblings for
+    the train split (the native loader's files). Returns the directory."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.data.datasets import video_data_paths_dict
+
+    root = os.path.join(data_root, video_data_paths_dict[CLI_DATASET])
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    splits = {"train": [], "test": []}
+    for i in range(n_train + n_test):
+        split = "train" if i < n_train else "test"
+        name = f"video_{i:05d}.pt"
+        video = rng.integers(0, 256, (T, size, size, 3), dtype=np.uint8)
+        torch.save(torch.from_numpy(video), os.path.join(root, name))
+        if npy and split == "train":
+            np.save(os.path.join(root, name[:-3] + ".npy"), video)
+        splits[split].append(name)
+    for split, names in splits.items():
+        with open(os.path.join(root, f"video_{split}.csv"), "w") as f:
+            f.write("".join(f"videos/{n}\n" for n in names))
+    return root
+
+
+def write_reference_checkpoint(path, model, cfg, **extra):
+    """``model``'s weights as a reference-format ``.pt``: {"state_dict",
+    "config"} with the reference's config keys (no compute dtype: the
+    reference's bf16 torso default)."""
+    import torch
+
+    from lfvdm_tpu_torch.config import model_and_diffusion_defaults
+
+    config = {k: cfg.get(k, v) for k, v in model_and_diffusion_defaults().items()
+              if k not in REFERENCE_ONLY_DROPS}
+    config.update(extra)
+    torch.save({"state_dict": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                "config": config}, path)
+    return config
+
+
+def check_sample_files(written, dataset, indices, n_obs, shape):
+    """Each sample file a uint8 video of ``shape`` whose first ``n_obs``
+    frames are the test video's, through the CLI's own float -> uint8 map,
+    exactly."""
+    import numpy as np
+
+    from lfvdm_tpu_torch.scripts.video_sample import to_uint8
+
+    if len(written) != len(indices):
+        raise RuntimeError(f"{len(written)} sample files written, expected {len(indices)}")
+    for path, i in zip(written, indices):
+        video = np.load(path)
+        if video.dtype != np.uint8 or video.shape != tuple(shape):
+            raise RuntimeError(f"{path}: {video.dtype} {video.shape}, expected uint8 {shape}")
+        if not np.array_equal(video[:n_obs], to_uint8(dataset[i][:n_obs])):
+            raise RuntimeError(f"{path}: the observed frames were not kept")
+
+
+def cli_sample_argv(checkpoint, eval_dir):
+    """video_sample's command line: a 60-frame hierarchy-2 video per test
+    video, 10 observed, windows of K = 20, DDIM with 25 steps, B = 2."""
+    sp = CLI_SAMPLE
+    return [checkpoint, "--dataset", CLI_DATASET, "--T", str(sp["T"]),
+            "--n_obs", str(sp["n_obs"]), "--max_frames", str(sp["max_frames"]),
+            "--batch_size", str(sp["batch_size"]), "--sampling_scheme", sp["scheme"],
+            "--use_ddim", "True", "--timestep_respacing", sp["respacing"], "--eval_dir", eval_dir]
+
+
+def cli_train_argv(run_dir):
+    """video_train's command line: these flags and the dataset give
+    ``config.flagship_config()``; 4 steps, saved at the 4th, logged each."""
+    return ["--dataset", CLI_DATASET, "--T", str(CLI_VIDEO_T), "--num_res_blocks", "1",
+            "--batch_size", str(FLAGSHIP_B), "--max_frames", str(FLAGSHIP_K),
+            "--max_steps", str(CLI_TRAIN_STEPS), "--save_interval", str(CLI_TRAIN_STEPS),
+            "--sample_interval", str(CLI_TRAIN_STEPS), "--log_interval", "1",
+            "--checkpoint_dir", run_dir]
+
+
+def pil_available() -> bool:
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _timed_batches(gen, n, warmup=2):
+    for _ in range(warmup):
+        next(gen)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(gen)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_cli(ckpt_root, card):
+    """Both CLIs' ``main(argv)`` at the flagship's full width on a seeded
+    CARLA-layout fixture: sampling from a reference ``.pt`` (hierarchy-2,
+    DDIM 25), idempotent on a second run; 4 training steps served by the
+    native loader, the vis sampler on the trained loop, and sampling from the
+    run directory's raw weights; then the loaders' cost. Every model call
+    launches 7 + 7 + 10 kernels on the "mma" and "bulk" routes. Returns the
+    launch counts and routes by path."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.config import create_diffusion, flagship_config
+    from lfvdm_tpu_torch.data import datasets as data
+    from lfvdm_tpu_torch.data.native_loader import native_loader_available, native_loader_error
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.scripts import video_sample, video_train
+    from lfvdm_tpu_torch.training.vis_sampling import make_sample_fn
+
+    if not native_loader_available():
+        raise RuntimeError(f"the native loader did not build: {native_loader_error()}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=ckpt_root)
+    saved_root = os.environ.get("DATA_ROOT")
+    os.environ["DATA_ROOT"] = os.path.join(tmp, "data")
+    counts = {}
+    try:
+        t0 = time.perf_counter()
+        write_carla_fixture(os.environ["DATA_ROOT"])
+        cfg, model, _ = flagship_model("cuda")
+        ckpt = os.path.join(tmp, "flagship.pt")
+        write_reference_checkpoint(ckpt, model, cfg, dataset=CLI_DATASET,
+                                   max_frames=FLAGSHIP_K, T=CLI_VIDEO_T)
+        del model
+        emit({"phase": "cli_fixtures", "card": card, "s": time.perf_counter() - t0,
+              "videos": [CLI_TRAIN_VIDEOS, CLI_TEST_VIDEOS], "video": [CLI_VIDEO_T, 128, 128, 3]})
+
+        # Sampling from the reference .pt.
+        sp = CLI_SAMPLE
+        argv = cli_sample_argv(ckpt, os.path.join(tmp, "eval"))
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        run = video_sample.main(argv)
+        torch.cuda.synchronize()
+        launches, routes = read_counts()
+        counts["cli_sample"] = (launches, routes)
+        calls, videos = run["model_calls"], len(run["written"])
+        test = data.get_test_dataset(CLI_DATASET, T=sp["T"])
+        again = video_sample.main(argv)
+        row = {"phase": "cli_sample", "card": card, "scheme": sp["scheme"],
+               "respacing": sp["respacing"], "videos": videos, "T": sp["T"],
+               "model_calls": calls, "sampling_s": run["sampling_s"],
+               "s_per_video": run["sampling_s"] / videos,
+               "ms_per_model_call": run["sampling_s"] / calls * 1e3,
+               "launches": launches, "routes": routes,
+               "second_run_written": len(again["written"])}
+        emit(row)
+        check_sample_files(run["written"], test, range(sp["batch_size"]), sp["n_obs"],
+                           (sp["T"], 3, 128, 128))
+        _check_launches(launches, routes, calls)
+        if again["written"] or again["model_calls"]:
+            raise RuntimeError("the second sampling run wrote files")
+
+        # Training: the flagship config from the flags.
+        run_dir = os.path.join(tmp, "run")
+        argv = cli_train_argv(run_dir)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop = video_train.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches, routes = read_counts()
+        counts["cli_train"] = (launches, routes)
+        served = {"source": loop.data.source, "batches": loop.data.served}
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        flagship = {k: loop.config[k] for k in flagship_config()}
+        step_dir = os.path.join(run_dir, str(CLI_TRAIN_STEPS))
+        files = sorted(os.listdir(step_dir)) if os.path.isdir(step_dir) else []
+        emit({"phase": "cli_train", "card": card, "steps": CLI_TRAIN_STEPS, "wall_s": train_s,
+              "batches_served": served, "losses": losses, "config": flagship,
+              "launches": launches, "routes": routes, "run_dir_files": files})
+        if flagship != flagship_config():
+            raise RuntimeError(f"the flags gave {flagship}, not the flagship config")
+        if served["source"] != "native" or served["batches"] < 2 * CLI_TRAIN_STEPS:
+            raise RuntimeError(f"training was not served by the native loader: {served}")
+        if len(losses) != CLI_TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"training losses {losses}")
+        if not os.path.exists(os.path.join(run_dir, "config.json")) or files != [
+                "ema_0.9999.pt", "params.pt", "train_state.pt"]:
+            raise RuntimeError(f"run directory {run_dir} holds {files}")
+        _check_launches(launches, routes, CLI_TRAIN_STEPS)
+
+        # The vis sampler on the trained loop (the 4-step run never reaches
+        # its sample interval), with a 25-step schedule instead of the
+        # training one's 1000.
+        gifs = pil_available()
+        vis_batch = np.stack([test[i] for i in range(FLAGSHIP_B)])  # T > K frames
+        view = types.SimpleNamespace(
+            model=loop.model, diffusion=create_diffusion(dict(loop.config, timestep_respacing="25")),
+            state=loop.state, max_frames=FLAGSHIP_K, codec=loop.codec, device=loop.device,
+            step=loop.step)
+        ops.reset_launch_counts()
+        vids = make_sample_fn(vis_batch, out_dir=os.path.join(run_dir, "vis") if gifs else None,
+                              seed=0)(view)
+        torch.cuda.synchronize()
+        launches, routes = read_counts()
+        counts["cli_vis"] = (launches, routes)
+        written = sorted(os.listdir(os.path.join(run_dir, "vis"))) if gifs else []
+        emit({"phase": "cli_vis", "card": card, "pil": gifs, "gifs": written,
+              "videos": list(vids.shape), "launches": launches, "routes": routes,
+              "note": None if gifs else "PIL is absent: make_sample_fn ran with out_dir=None"})
+        _check_launches(launches, routes, 25)
+        if gifs and len(written) != FLAGSHIP_B:
+            raise RuntimeError(f"vis sampling wrote {written}")
+
+        # Sampling from the new run directory's raw weights, one window.
+        argv = [run_dir, "--ema_rate", "raw", "--T", "20", "--n_obs", "10",
+                "--max_frames", str(FLAGSHIP_K), "--batch_size", str(FLAGSHIP_B),
+                "--sampling_scheme", "autoreg", "--use_ddim", "True",
+                "--timestep_respacing", "ddim10", "--eval_dir", os.path.join(tmp, "eval_run")]
+        ops.reset_launch_counts()
+        run2 = video_sample.main(argv)
+        torch.cuda.synchronize()
+        launches, routes = read_counts()
+        counts["cli_run_dir_sample"] = (launches, routes)
+        emit({"phase": "cli_run_dir_sample", "card": card, "model_calls": run2["model_calls"],
+              "sampling_s": run2["sampling_s"], "written": len(run2["written"]),
+              "launches": launches, "routes": routes})
+        check_sample_files(run2["written"], data.get_test_dataset(CLI_DATASET, T=20),
+                           range(FLAGSHIP_B), 10, (20, 3, 128, 128))
+        _check_launches(launches, routes, run2["model_calls"])
+
+        emit(_loader_costs(loop, card))
+        del loop
+    finally:
+        if saved_root is None:
+            os.environ.pop("DATA_ROOT", None)
+        else:
+            os.environ["DATA_ROOT"] = saved_root
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _loader_costs(loop, card):
+    """ms per batch (B=2, T=100, 128 px) of the native loader, the Python
+    thread loader and the synchronous generator on the fixture; and the
+    train step's host batch time (``next_step_inputs``) inside 3 steps of the
+    CLI's loop with its prefetching native loader, against 3 back-to-back
+    draws from the synchronous generator."""
+    from lfvdm_tpu_torch.data import datasets as data
+
+    kw = dict(batch_size=FLAGSHIP_B, T=CLI_VIDEO_T, seed=0)
+    native = _timed_batches(data.load_data(CLI_DATASET, **kw), CLI_LOADER_BATCHES)
+    os.environ["LFVDM_NATIVE_LOADER"] = "0"
+    try:
+        thread = _timed_batches(data.load_data(CLI_DATASET, **kw), CLI_LOADER_BATCHES)
+    finally:
+        del os.environ["LFVDM_NATIVE_LOADER"]
+    dataset = data.load_data(CLI_DATASET, return_dataset=True, **kw)
+    sync = _timed_batches(data.batch_generator(dataset, FLAGSHIP_B), CLI_LOADER_BATCHES)
+
+    in_step = _host_batch_ms_in_steps(loop, 3)
+    loop.data = data.batch_generator(dataset, FLAGSHIP_B)
+    sync_step = _host_batch_ms_back_to_back(loop, 3)
+    return {"phase": "cli_loaders", "card": card, "batch": [FLAGSHIP_B, CLI_VIDEO_T, 3, 128, 128],
+            "native_ms_per_batch": native, "thread_ms_per_batch": thread,
+            "sync_ms_per_batch": sync, "host_batch_ms_in_step_prefetch": in_step,
+            "host_batch_ms_sync_back_to_back": sync_step}
+
+
+@contextlib.contextmanager
+def timed_draws(loop):
+    """Inside, each ``loop.next_step_inputs()`` call (the host's batch
+    drawing, masking and upload, synchronised) appends its seconds to the
+    list this yields."""
+    import torch
+
+    inner, times = loop.next_step_inputs, []
+
+    def timed():
+        t0 = time.perf_counter()
+        out = inner()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    loop.next_step_inputs = timed
+    try:
+        yield times
+    finally:
+        del loop.next_step_inputs
+
+
+def _host_batch_ms_in_steps(loop, steps):
+    """Mean ms of ``loop.next_step_inputs`` inside ``steps`` train steps."""
+    with timed_draws(loop) as times:
+        for _ in range(steps):
+            loop.run_step()
+            loop.step += 1
+    return sum(times) / len(times) * 1e3
+
+
+def _host_batch_ms_back_to_back(loop, n):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        loop.next_step_inputs()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1456,9 +1815,10 @@ def main() -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     phase_train_parity()
     latent = phase_latent(ckpt_root, card)
+    cli = phase_cli(ckpt_root, card)
     launches = {"train": train_launches, "sample_video": sample_launches}
     routes = {"train": train_routes, "sample_video": sample_routes}
-    for path, (c, r) in latent.items():
+    for path, (c, r) in {**latent, **cli}.items():
         launches[path], routes[path] = c, r
     emit(kernels_line(results, launches, routes))
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

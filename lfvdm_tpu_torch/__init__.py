@@ -16,10 +16,15 @@ Package layout:
                 losses), DPM-Solver++, timestep samplers, the codecs of
                 the diffusion spaces and the wavelet transform
   sampling/   — long-video sampling schemes and the sampler driver
-  training/   — masks, the train step and loop, checkpoints
-  data/       — synthetic video datasets, pre-encoded latent datasets
-  utils/      — JAX-tree -> state_dict / train-state / VAE conversion,
-                device selection, the metrics logger, a file lock
+  training/   — masks, the train step and loop, checkpoints, vis sampling
+  data/       — the dataset registry (CARLA, MineRL, GQN-mazes, synthetic,
+                pre-encoded latents), the prefetching loader, the binding
+                of the native loader
+  native/     — the native C++ video loader's source (built with g++)
+  scripts/    — the entry points: video_sample, video_train
+  utils/      — reference .pt loading, JAX-tree -> state_dict / train-state
+                / VAE conversion, device selection, the metrics logger,
+                results paths, RNG scoping, video files, a file lock
 """
 
 __version__ = "0.1.0"

@@ -7,6 +7,7 @@ one key it lacks, ``fused_skip_conv``.
 
 from __future__ import annotations
 
+import argparse
 from typing import Any, Dict
 
 import torch
@@ -112,7 +113,8 @@ def create_model(
     if image_size not in CHANNEL_MULT_BY_IMAGE_SIZE:
         raise ValueError(f"unsupported image size: {image_size}")
     if use_checkpoint:
-        raise NotImplementedError("use_checkpoint (rematerialisation) is not ported yet")
+        raise NotImplementedError("use_checkpoint (rematerialisation) is not ported yet "
+                                  "(ROADMAP A5)")
     device = resolve_device(device)
     attention_ds = tuple(image_size // int(res) for res in str(attention_resolutions).split(","))
     model = UNetVideoModel(
@@ -193,3 +195,30 @@ def create_model_and_diffusion(config: Dict[str, Any], *, device="cuda", seed: i
         device=device, seed=seed,
     )
     return model, create_diffusion(cfg)
+
+
+def str2bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("boolean value expected")
+
+
+def add_dict_to_argparser(parser: argparse.ArgumentParser, default_dict: Dict[str, Any]):
+    """One typed ``--key`` flag per entry, typed by its default: bools parse
+    with ``str2bool`` and a None default parses as a string (the CLIs coerce
+    such flags, ``--T`` say, themselves)."""
+    for k, v in default_dict.items():
+        v_type = type(v)
+        if v is None:
+            v_type = str
+        elif isinstance(v, bool):
+            v_type = str2bool
+        parser.add_argument(f"--{k}", default=v, type=v_type)
+
+
+def args_to_dict(args, keys):
+    return {k: getattr(args, k) for k in keys}

@@ -1,0 +1,105 @@
+"""In-training sample logging (counterpart of lfvdm_tpu/training/vis_sampling.py).
+
+On a fixed vis batch: deterministic obs/latent masks (the first third
+observed; row 1 strided), one window sampled with the EMA weights, the
+composite of observed and sampled frames decoded, the observed frames marked
+with a red border, a gif per video. The sampler's noise comes from a
+``torch.Generator`` seeded from ``seed`` on the loop's device. One process:
+the gather of the weights across processes waits for data parallelism
+(ROADMAP A5); the attention heatmaps (``log_attn``) wait for
+``sample_window_attn`` (ROADMAP A4).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..utils.device import process_index_and_count
+from ..utils.logger import logger
+from ..utils.rng import RNG
+from ..utils.video_io import mark_as_observed, tensor2gif
+from .masks import prepare_training_batch, sample_all_masks
+
+
+def make_vis_masks(B: int, T: int, max_frames: int):
+    """Deterministic vis masks: row 0 contiguous prefix, row 1 strided."""
+    n_obs = max_frames // 3
+    obs = np.zeros((B, T), np.float32)
+    latent = np.zeros((B, T), np.float32)
+    obs[0, :n_obs] = 1.0
+    latent[0, n_obs:max_frames] = 1.0
+    if B > 1:
+        spacing = T // max_frames
+        obs[1, : n_obs * spacing: spacing] = 1.0
+        latent[1, n_obs * spacing: max_frames * spacing: spacing] = 1.0
+    return obs, latent, n_obs
+
+
+def make_sample_fn(vis_batch: np.ndarray, *, ema_rate: str = None, out_dir: str = None,
+                   seed: int = 0, log_attn: bool = False):
+    """A ``TrainLoop.sample_fn`` that samples the vis batch with the EMA
+    weights (``ema_rate``, default the largest saved) and, with ``out_dir``,
+    writes ``step<step>_video<i>.gif`` there and logs each path. The EMA
+    weights are copied into the loop's model for the window and the raw
+    ones put back after it. Returns the marked uint8 videos (B, K, C, H, W).
+    """
+    if log_attn:
+        raise NotImplementedError("log_attn needs sample_window_attn, which is not ported "
+                                  "yet (ROADMAP A4)")
+
+    def sample_fn(loop):
+        from ..sampling.driver import VideoSampler
+
+        if process_index_and_count()[1] > 1:
+            raise NotImplementedError("vis sampling across processes waits for data "
+                                      "parallelism (ROADMAP A5)")
+        rate = ema_rate or sorted(loop.state.ema.keys())[-1]
+        ema = loop.state.ema[rate]
+
+        B, T = vis_batch.shape[:2]
+        with RNG(seed):
+            rng = np.random.default_rng(seed)
+            obs, latent, n_obs = make_vis_masks(B, T, loop.max_frames)
+            obs_s, latent_s = sample_all_masks(rng, B, T, loop.max_frames,
+                                               set_masks={"obs": obs, "latent": latent})
+            batch, fi, obs_m, lat_m = prepare_training_batch(
+                rng, vis_batch, obs_s, latent_s, loop.max_frames, pad_with_random_frames=False)
+        dev = loop.device
+        batch = torch.as_tensor(batch, dtype=torch.float32, device=dev)
+        if loop.codec is not None:
+            batch = loop.codec.encode(batch)
+        obs_t = torch.as_tensor(obs_m, device=dev)
+        lat_t = torch.as_tensor(lat_m, device=dev)
+
+        named = dict(loop.model.named_parameters())
+        raw = {n: p.detach().clone() for n, p in named.items()}
+        try:
+            with torch.no_grad():
+                for n, p in named.items():
+                    p.copy_(ema[n])
+            local = VideoSampler(loop.model, loop.diffusion).sample_window(
+                batch, fi, obs_m, lat_m,
+                generator=torch.Generator(device=dev).manual_seed(seed))
+        finally:
+            with torch.no_grad():
+                for n, p in named.items():
+                    p.copy_(raw[n])
+        composite = local * lat_t + batch * obs_t
+        if loop.codec is not None:
+            composite = loop.codec.decode(composite)
+        composite = torch.as_tensor(composite).float().cpu().numpy()
+        vids = ((composite + 1) * 127.5).clip(0, 255).astype(np.uint8)
+        mark_as_observed(vids[:, :n_obs])
+
+        if out_dir is not None:
+            os.makedirs(out_dir, exist_ok=True)
+            for i, vid in enumerate(vids):
+                path = f"{out_dir}/step{loop.step:06d}_video{i}.gif"
+                tensor2gif(vid, path, drange=(0, 255))
+                logger.logkv(f"video-{i}", path, distributed=False)
+        return vids
+
+    return sample_fn

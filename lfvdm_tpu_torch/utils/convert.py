@@ -1,4 +1,10 @@
-"""JAX parameter tree (numpy) -> the port's ``state_dict``.
+"""Weights into the port: the reference's ``.pt`` checkpoints, and JAX
+parameter trees (numpy) -> the port's ``state_dict``.
+
+``load_reference_checkpoint`` reads a reference-format ``.pt`` file
+(``{"state_dict", "config"}``), the one checkpoint format both packages
+read: the port's U-Net has the reference's module names, so its state_dict
+loads as it is.
 
 The inverse of ``lfvdm_tpu/utils/torch_convert.py``: it maps the Flax
 parameter tree of ``lfvdm_tpu.models.unet.UNetVideoModel`` onto the module
@@ -20,7 +26,7 @@ Layouts:
 from __future__ import annotations
 
 import functools
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -260,3 +266,36 @@ def vae_state_dict_from_jax(enc_vars: Mapping, dec_vars: Mapping) -> Dict[str, t
     _conv_nd(sd, "decoder.conv_out", dec["conv_out"])
     _conv_nd(sd, "decoder.time_conv_out", dec["time_conv_out"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Reference .pt checkpoints
+# ---------------------------------------------------------------------------
+
+
+def read_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """A reference ``.pt`` checkpoint -> (f32 state_dict on the CPU, its
+    embedded config dict)."""
+    data = torch.load(path, map_location="cpu", weights_only=False)
+    state_dict = {k: v.float() for k, v in data["state_dict"].items()}
+    return state_dict, dict(data.get("config", {}))
+
+
+def load_reference_checkpoint(path: str, *, device="cuda"):
+    """A reference ``.pt`` checkpoint -> (model on ``device``, diffusion,
+    config).
+
+    The config is read as the JAX package's converter reads it: image size
+    64, ``num_res_blocks`` 2 and ``attention_resolutions`` "16,8" where it
+    has none, ``channel_mult`` from ``CHANNEL_MULT_BY_IMAGE_SIZE``. The
+    weights load with a strict ``load_state_dict``. Rematerialisation
+    (``use_checkpoint``) only changes a backward pass, so the model is built
+    without it; the config returned is the checkpoint's, unchanged.
+    """
+    from ..config import create_model_and_diffusion
+
+    state_dict, config = read_reference_checkpoint(path)
+    model, diffusion = create_model_and_diffusion(dict(config, use_checkpoint=False),
+                                                  device=device)
+    model.load_state_dict(state_dict, strict=True)
+    return model, diffusion, config

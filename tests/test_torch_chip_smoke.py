@@ -165,3 +165,133 @@ def test_main_refuses_without_a_card(capsys):
         pytest.skip("a card is present")
     assert chip_smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+# ---- the cli phase's pieces ----
+
+
+def test_cli_fixture_is_the_carla_layout(tmp_path, monkeypatch):
+    """The fixture writer gives the CARLA layout the registry reads: the
+    train split with .npy siblings (the native loader's files), the test
+    split without; the same seed, the same bytes."""
+    from lfvdm_tpu_torch.data import datasets as data
+
+    root = chip_smoke.write_carla_fixture(str(tmp_path / "a"), size=8, T=6, n_train=3,
+                                          n_test=2)
+    chip_smoke.write_carla_fixture(str(tmp_path / "b"), size=8, T=6, n_train=3, n_test=2)
+    monkeypatch.setenv("DATA_ROOT", str(tmp_path / "a"))
+    train = data.load_data(chip_smoke.CLI_DATASET, batch_size=1, T=6, return_dataset=True)
+    test = data.get_test_dataset(chip_smoke.CLI_DATASET, T=6)
+    assert isinstance(train, data.CarlaDataset) and (len(train), len(test)) == (3, 2)
+    assert len(train.native_paths()) == 3 and test.native_paths() is None
+    for i, path in enumerate(train.native_paths()):
+        np.testing.assert_array_equal(train[i], train.postprocess_video(np.load(path)))
+        assert (tmp_path / "b" / path.split(str(tmp_path / "a") + "/")[1]).read_bytes() == \
+            open(path, "rb").read()
+    assert test[1].shape == (6, 3, 8, 8) and root.endswith("datasets/carla/no-traffic")
+
+
+def test_cli_reference_checkpoint_has_the_reference_keys(tmp_path):
+    from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
+    from lfvdm_tpu_torch.utils.convert import load_reference_checkpoint
+
+    cfg = flagship_config(tiny=True)
+    model, _ = create_model_and_diffusion(cfg, device="cpu", seed=3)
+    path = str(tmp_path / "m.pt")
+    config = chip_smoke.write_reference_checkpoint(path, model, cfg, dataset="synthetic",
+                                                   max_frames=4)
+    assert not set(config) & set(chip_smoke.REFERENCE_ONLY_DROPS)
+    assert config["image_size"] == 32 and config["dataset"] == "synthetic"
+    loaded, _, read = load_reference_checkpoint(path, device="cpu")
+    assert read == config and loaded.dtype == torch.bfloat16  # the reference's torso default
+    for (n, p), q in zip(model.named_parameters(), loaded.parameters()):
+        assert torch.equal(p, q), n
+
+
+def test_cli_observed_frame_check(tmp_path):
+    from lfvdm_tpu_torch.data.datasets import get_test_dataset
+    from lfvdm_tpu_torch.scripts.video_sample import to_uint8
+
+    dataset = get_test_dataset("synthetic", T=6)
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(2):
+        video = to_uint8(dataset[i]).copy()
+        video[3:] = rng.integers(0, 256, video[3:].shape, dtype=np.uint8)  # "sampled"
+        paths.append(tmp_path / f"sample_{i:04d}-0.npy")
+        np.save(paths[-1], video)
+    chip_smoke.check_sample_files(paths, dataset, range(2), 3, (6, 3, 64, 64))
+    with pytest.raises(RuntimeError, match="uint8"):
+        chip_smoke.check_sample_files(paths, dataset, range(2), 3, (6, 3, 32, 32))
+    with pytest.raises(RuntimeError, match="written"):
+        chip_smoke.check_sample_files(paths[:1], dataset, range(2), 3, (6, 3, 64, 64))
+    video = np.load(paths[1])
+    video[2, 0, 0, 0] ^= 1  # one observed pixel off by one
+    np.save(paths[1], video)
+    with pytest.raises(RuntimeError, match="observed"):
+        chip_smoke.check_sample_files(paths, dataset, range(2), 3, (6, 3, 64, 64))
+
+
+def test_cli_train_flags_give_the_flagship_config(tmp_path, monkeypatch):
+    """The cli phase's video_train command line, run to the TrainLoop on the
+    CPU: the flagship config, its vis batch drawn from the native loader."""
+    from lfvdm_tpu_torch.config import flagship_config
+    from lfvdm_tpu_torch.scripts import video_train
+
+    captured = {}
+
+    class Capture:
+        def __init__(self, **kw):
+            captured.update(kw)
+
+        def run_loop(self, max_steps=None):
+            captured["max_steps"] = max_steps
+
+    chip_smoke.write_carla_fixture(str(tmp_path), size=8, T=chip_smoke.CLI_VIDEO_T,
+                                   n_train=2, n_test=1)
+    monkeypatch.setenv("DATA_ROOT", str(tmp_path))
+    monkeypatch.setattr(video_train, "TrainLoop", Capture)
+    from lfvdm_tpu_torch.utils.logger import logger
+
+    monkeypatch.setattr(logger, "_jsonl_path", logger._jsonl_path)
+    video_train.main(chip_smoke.cli_train_argv(str(tmp_path / "run")) + ["--device", "cpu"])
+    config = captured["config"]
+    assert {k: config[k] for k in flagship_config()} == flagship_config()
+    assert captured["batch_size"] == chip_smoke.FLAGSHIP_B
+    assert captured["max_frames"] == chip_smoke.FLAGSHIP_K
+    assert captured["max_steps"] == chip_smoke.CLI_TRAIN_STEPS
+    assert captured["sample_fn"] is not None
+    from lfvdm_tpu_torch.data.native_loader import native_loader_available
+
+    assert captured["data"].served == 1  # the vis batch
+    assert captured["data"].source == ("native" if native_loader_available() else "python")
+
+
+def test_cli_paths_in_the_kernels_line():
+    """The cli phase's paths appear in launches_by_path and _by_route."""
+    counts = {n: k * 125 for n, k in chip_smoke.PER_FORWARD.items()}
+    routes = {"spatial_attention": {"mma": 7 * 125, "fma": 0},
+              "skip_conv_stats": {"generic": 0, "bulk": 10 * 125}}
+    chip_smoke._check_launches(counts, routes, 125)
+    with pytest.raises(RuntimeError, match="launch counts"):
+        chip_smoke._check_launches(counts, routes, 124)
+    results = {}
+    for ds in chip_smoke.ATTN_SHAPES:
+        results[("temporal_rpe_attention", ds, "bfloat16")] = _row("temporal_rpe_attention",
+                                                                   ds, library_ms=None)
+        results[("spatial_attention", ds, "bfloat16")] = _row("spatial_attention", ds,
+                                                              library="x")
+    for ds in chip_smoke.LATENT_ATTN_SHAPES:
+        for name in ("temporal_rpe_attention", "spatial_attention"):
+            results[("latent", name, ds, "bfloat16")] = _row(name, ds)
+    for shp in chip_smoke.SKIP_SHAPES:
+        results[("skip_conv_stats",) + shp + ("bfloat16",)] = _row("skip_conv_stats", shp[0])
+    for shp in chip_smoke.LATENT_SKIP_SHAPES:
+        results[("latent", "skip_conv_stats") + shp + ("bfloat16",)] = _row("skip_conv_stats",
+                                                                            shp[0])
+    paths = ("train", "sample_video", "cli_sample", "cli_train", "cli_vis", "cli_run_dir_sample")
+    line = chip_smoke.kernels_line(results, {p: counts for p in paths},
+                                   {p: routes for p in paths})
+    for e in line["kernels"]:
+        assert set(e["launches_by_path"]) == set(paths)
+        assert e["launches_by_path"]["cli_sample"] == counts[e["name"]]

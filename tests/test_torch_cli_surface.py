@@ -1,0 +1,90 @@
+"""The port's CLIs accept every flag of the repo's JAX scripts, with the
+same default, and add only ``--device``; their ``--help`` runs in a fresh
+interpreter where JAX, flax, orbax and the JAX package cannot be imported.
+"""
+
+import importlib
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from lfvdm_tpu_torch.scripts import video_sample, video_train
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = {"video_sample": video_sample, "video_train": video_train}
+
+
+def _jax_parser(name):
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        return importlib.import_module(name).create_argparser()
+    finally:
+        sys.path.pop(0)
+
+
+def _options(parser):
+    """{option string: action} of a parser's flags (``-h`` left out), and
+    its positional arguments."""
+    flags = {opt: a for a in parser._actions for opt in a.option_strings
+             if opt not in ("-h", "--help")}
+    positional = [a.dest for a in parser._actions if not a.option_strings]
+    return flags, positional
+
+
+@pytest.mark.parametrize("name", ["video_sample", "video_train"])
+def test_every_jax_flag_with_its_default(name):
+    jflags, jpos = _options(_jax_parser(name))
+    tflags, tpos = _options(PORT[name].create_argparser())
+    assert tpos == jpos
+    assert set(tflags) - set(jflags) == {"--device"}
+    assert not set(jflags) - set(tflags)
+    for opt, ja in jflags.items():
+        ta = tflags[opt]
+        assert ta.default == ja.default, opt
+        assert ta.required == ja.required, opt
+        assert (sorted(ta.choices) if ta.choices else None) == \
+            (sorted(ja.choices) if ja.choices else None), opt
+        assert getattr(ta.type, "__name__", None) == getattr(ja.type, "__name__", None), opt
+        assert ta.nargs == ja.nargs and ta.const == ja.const, opt
+    assert tflags["--device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", ["video_sample", "video_train"])
+def test_same_values_parsed(name):
+    """Each flag of a typical command line parses to the same value."""
+    argv = {"video_sample": ["ckpt.pt", "--sampling_scheme", "hierarchy-2", "--T", "300",
+                             "--use_ddim", "yes", "--timestep_respacing", "ddim50",
+                             "--max_frames", "20", "--just_visualise"],
+            "video_train": ["--dataset", "carla_no_traffic", "--T", "100", "--batch_size", "2",
+                            "--resume", "t", "--attention_resolutions", "16,8",
+                            "--learn_sigma", "False", "--lr", "3e-4"]}[name]
+    want = vars(_jax_parser(name).parse_args(argv))
+    got = vars(PORT[name].create_argparser().parse_args(argv))
+    assert got.pop("device") == "cuda"
+    assert got == want
+
+
+HELP = """
+import importlib.abc, runpy, sys
+BLOCKED = ("jax", "flax", "optax", "orbax", "lfvdm_tpu", "scripts", "diffusers")
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+sys.meta_path.insert(0, Block())
+sys.argv = ["{name}", "--help"]
+runpy.run_module("lfvdm_tpu_torch.scripts.{name}", run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("name", ["video_sample", "video_train"])
+def test_help_runs_with_jax_blocked(name):
+    run = subprocess.run([sys.executable, "-c", HELP.format(name=name)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert "--device" in run.stdout and "usage:" in run.stdout

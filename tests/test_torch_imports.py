@@ -4,7 +4,8 @@ An AST scan of every module of ``lfvdm_tpu_torch`` and of ``chip_smoke.py``
 (which runs on a machine without JAX) for ``import`` statements naming
 ``jax``, ``flax``, ``optax``, ``orbax``, ``lfvdm_tpu``, the repo's
 ``scripts`` or ``diffusers`` (on neither machine); and the latent slice's
-modules imported in a fresh interpreter where those names cannot be found.
+modules, the entry points and their data, checkpoint and logging modules
+imported in a fresh interpreter where those names cannot be found.
 """
 
 import ast
@@ -41,7 +42,12 @@ def test_scan_covers_the_package():
                      "lfvdm_tpu_torch/ops/skipconv.py", "lfvdm_tpu_torch/training/train_loop.py",
                      "lfvdm_tpu_torch/training/checkpoint.py", "lfvdm_tpu_torch/models/vae.py",
                      "lfvdm_tpu_torch/diffusion/codecs.py", "lfvdm_tpu_torch/diffusion/wavelet.py",
-                     "lfvdm_tpu_torch/data/datasets.py", "chip_smoke.py"):
+                     "lfvdm_tpu_torch/data/datasets.py", "lfvdm_tpu_torch/data/native_loader.py",
+                     "lfvdm_tpu_torch/scripts/video_sample.py",
+                     "lfvdm_tpu_torch/scripts/video_train.py",
+                     "lfvdm_tpu_torch/training/vis_sampling.py", "lfvdm_tpu_torch/utils/paths.py",
+                     "lfvdm_tpu_torch/utils/rng.py", "lfvdm_tpu_torch/utils/video_io.py",
+                     "lfvdm_tpu_torch/utils/logger.py", "chip_smoke.py"):
         assert expected in names
 
 
@@ -73,6 +79,9 @@ import lfvdm_tpu_torch.models.vae, lfvdm_tpu_torch.diffusion.codecs
 import lfvdm_tpu_torch.diffusion.wavelet, lfvdm_tpu_torch.data.datasets
 import lfvdm_tpu_torch.utils.convert, lfvdm_tpu_torch.sampling.driver
 import lfvdm_tpu_torch.training.train_loop, lfvdm_tpu_torch.config, chip_smoke
+import lfvdm_tpu_torch.scripts.video_sample, lfvdm_tpu_torch.scripts.video_train
+import lfvdm_tpu_torch.data.native_loader, lfvdm_tpu_torch.training.vis_sampling
+import lfvdm_tpu_torch.utils.paths, lfvdm_tpu_torch.utils.rng, lfvdm_tpu_torch.utils.video_io
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")

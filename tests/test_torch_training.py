@@ -433,7 +433,7 @@ def test_synthetic_data_matches_jax():
     batches = t_datasets.load_data("synthetic", batch_size=3, T=5, seed=1)
     assert next(batches).shape == (3, 5, 3, 64, 64)
     with pytest.raises(ValueError):
-        t_datasets.load_data("minerl", batch_size=1)
+        t_datasets.load_data("no_such_dataset", batch_size=1)
 
 
 def _data(seed=0):
