@@ -36,6 +36,21 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                DDIM (ddim25) and one DPM-Solver++ (dpm20) window. Launch counts
                are reset just before and read just after; each must equal
                7 + 7 + 10 per model call, on the same routes.
+  5b. reuse  — encoder reuse and the heatmap sampler on the flagship model
+               (phase_reuse): a. a 20-frame video of one window through
+               VideoSampler(encoder_reuse=3), ancestral with 50 steps (17 full
+               calls of 7 + 7 + 10 launches, 33 reuse calls of 4 + 4 + 10: the
+               up path's attention blocks and skip projections, on "mma" and
+               "bulk"), finite, observed frames kept, its relative L2 to the
+               same video without reuse printed; one full and one reuse call
+               timed (device busy and wall ms per call); b. the reuse call
+               kernel vs plain on the same features (relative L2 <= 5e-3);
+               c. sample_window_attn over 8 steps: eight finite heatmaps of
+               the JAX shapes, 0 + 0 + 10 launches per call (the attention
+               weights come from the einsum form). d. runs inside phase 9's
+               fixture: video_sample --encoder_reuse 3 and --sampling_scheme
+               adaptive-autoreg (LPIPS embedder on the card), and the
+               embedder's ms per batch of 80 frames at 128 px.
   6. train   — the training path: TrainLoop on the flagship config (B=2, K=20,
                bf16) over the synthetic dataset at 128 px (prefetched on a
                thread): warm-up steps, then timed steps (finite losses,
@@ -87,7 +102,9 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                d. ms per batch of the native, the Python-thread and the
                   synchronous loaders, and the train step's host batch time with
                   the prefetch against the synchronous generator.
-               Every model call launches 7 + 7 + 10 kernels on "mma"/"bulk".
+               e. phase 5b d (above) on the same fixture.
+               Every model call launches 7 + 7 + 10 kernels on "mma"/"bulk"
+               (a reuse call 4 + 4 + 10).
  10. the "kernels" summary line, then {"ok": true, "device": {...}} last.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -861,6 +878,196 @@ def phase_sample(cfg, model, diffusion):
     return row["launches"], row["routes"], rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 5b: encoder reuse and the attention-heatmap sampler
+# ---------------------------------------------------------------------------
+
+# Launches per model call on the reuse paths of the flagship U-Net. A reuse
+# call runs only the up path and the head: its 4 attention blocks (2 at ds 16,
+# 2 at ds 8) and its 10 skip projections, at the full call's shapes, so on the
+# same "mma" and "bulk" routes. A heatmap call (return_attn_weights) takes
+# every attention block's einsum form, which returns the weights; only its 10
+# skip projections launch. reuse_forward_counts() derives both from the model.
+REUSE_PER_FORWARD = {"temporal_rpe_attention": 4, "spatial_attention": 4, "skip_conv_stats": 10}
+ATTN_PER_FORWARD = {"temporal_rpe_attention": 0, "spatial_attention": 0, "skip_conv_stats": 10}
+REUSE_K = 3
+REUSE_RESPACING = "50"
+ATTN_RESPACING = "8"
+
+
+def reuse_forward_counts(model):
+    """(reuse call, heatmap call) launches per call, from ``model``'s blocks."""
+    from lfvdm_tpu_torch.models.unet import FactorizedAttentionBlock, fused_skip_blocks
+
+    up_attn = sum(isinstance(m, FactorizedAttentionBlock) for m in model.output_blocks.modules())
+    skips = fused_skip_blocks(model)
+    return ({"temporal_rpe_attention": up_attn, "spatial_attention": up_attn,
+             "skip_conv_stats": skips},
+            {"temporal_rpe_attention": 0, "spatial_attention": 0, "skip_conv_stats": skips})
+
+
+def mixed_counts(full, reuse):
+    """Launches of ``full`` full calls and ``reuse`` reuse calls."""
+    return {name: PER_FORWARD[name] * full + REUSE_PER_FORWARD[name] * reuse
+            for name in PER_FORWARD}
+
+
+def _device_ms(fn, n=5):
+    """Device busy ms per call of ``fn`` (torch.profiler, kernels summed)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_kernels_ms(prof, n).values())
+
+
+def _wall_ms_in_turns(fns, n=5):
+    """Wall ms per call of each of ``fns`` (name -> fn): host clock around
+    ``n`` calls and a synchronise, timed in turns (A, B, B, A) after a
+    warm-up call each. Returns name -> [first turn, second turn]."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fns[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) / n * 1e3)
+    return times
+
+
+def phase_reuse(cfg, model, card):
+    """Encoder reuse and the heatmap sampler on the flagship model (128 px,
+    B=2, K=20, bf16):
+      a. a 20-frame video of one window (10 observed, autoreg) sampled by
+         VideoSampler(encoder_reuse=3), ancestral with 50 steps: 17 full and 33
+         reuse calls, 7 + 7 + 10 and 4 + 4 + 10 launches per call on
+         "mma"/"bulk"; finite, the observed frames kept exactly, its relative
+         L2 to the same video without reuse from the same seed printed; one
+         full and one reuse call's launches read alone, and their ms per call
+         (device busy; wall in turns full, reuse, reuse, full);
+      b. the reuse call on the kernel path against impl="plain" on the same
+         features (relative L2 <= 5e-3, as phase 4's forward);
+      c. VideoSampler.sample_window_attn over one window of 8 steps: eight
+         finite heatmaps of the JAX shapes, (B, K, K) and (B, 256, 256) (the
+         first attention layer's 16x16 tokens), 0 + 0 + 10 launches per call.
+    Returns the launch counts and routes by path."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.config import create_diffusion
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.sampling.driver import VideoSampler
+
+    if reuse_forward_counts(model) != (REUSE_PER_FORWARD, ATTN_PER_FORWARD):
+        raise RuntimeError(f"the model's reuse and heatmap calls would launch "
+                           f"{reuse_forward_counts(model)}")
+    counts = {}
+    B, T, C, S = FLAGSHIP_B, FLAGSHIP_K, cfg["in_channels"], cfg["image_size"]
+    n_obs = 10
+    video = np.random.default_rng(40).uniform(-1, 1, (B, T, C, S, S)).astype(np.float32)
+    diffusion = create_diffusion(dict(cfg, timestep_respacing=REUSE_RESPACING))
+    args = dict(scheme_name="autoreg", n_obs=n_obs, max_frames=FLAGSHIP_K, step_size=10)
+
+    # a. The reuse window, and the same window without reuse from the same seed.
+    sampler = VideoSampler(model, diffusion, encoder_reuse=REUSE_K)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, used = sampler.sample_video(
+        video, generator=torch.Generator(device="cuda").manual_seed(41), **args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = read_counts()
+    counts["reuse_window"] = (launches, routes)
+    exact, _ = VideoSampler(model, diffusion).sample_video(
+        video, generator=torch.Generator(device="cuda").manual_seed(41), **args)
+    full_calls = sampler.model_calls - sampler.reuse_calls
+    lat = slice(n_obs, T)
+    rel = float(np.linalg.norm(samples[:, lat] - exact[:, lat]) / np.linalg.norm(exact[:, lat]))
+
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    x, t, kw = window_inputs(cfg, "cuda", gen)
+    x2 = torch.randn(x.shape, generator=gen, device="cuda")
+    t2 = t - 20
+    per_call = {}
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        _, _, feats = model(x, t, return_features=True, **kw)
+        torch.cuda.synchronize()
+        per_call["full"] = read_counts()
+        ops.reset_launch_counts()
+        out, _ = model(x2, t2, features=feats, **kw)
+        torch.cuda.synchronize()
+        per_call["reuse"] = read_counts()
+        ref, _ = model(x2, t2, features=feats, impl="plain", **kw)
+        calls = {"full": lambda: model(x, t, return_features=True, **kw),
+                 "reuse": lambda: model(x2, t2, features=feats, **kw)}
+        wall_ms = _wall_ms_in_turns(calls)
+        device_ms = {name: _device_ms(fn) for name, fn in calls.items()}
+    rel_plain = ((out - ref).norm() / ref.norm()).item()
+    row = {"phase": "reuse_window", "card": card, "sampler": "ancestral",
+           "respacing": REUSE_RESPACING, "encoder_reuse": REUSE_K, "video": [B, T, C, S, S],
+           "windows": len(used), "model_calls": sampler.model_calls, "full_calls": full_calls,
+           "reuse_calls": sampler.reuse_calls, "launches": launches, "routes": routes,
+           "wall_s": wall, "rel_l2_latent_vs_no_reuse": rel,
+           "launches_full_call": per_call["full"][0], "launches_reuse_call": per_call["reuse"][0],
+           "routes_full_call": per_call["full"][1], "routes_reuse_call": per_call["reuse"][1],
+           "full_call_device_ms": device_ms["full"], "reuse_call_device_ms": device_ms["reuse"],
+           "full_call_wall_ms_turns": wall_ms["full"], "reuse_call_wall_ms_turns": wall_ms["reuse"],
+           "reuse_rel_l2_vs_plain": rel_plain, "max_abs_reuse_out": ref.abs().max().item()}
+    emit(row)
+    _check_video(samples, video, n_obs, used, T)
+    if (len(used), full_calls, sampler.reuse_calls) != (1, 17, 33):
+        raise RuntimeError(f"expected 1 window of 17 full and 33 reuse calls, got {len(used)} "
+                           f"windows, {full_calls} and {sampler.reuse_calls}")
+    _check_launches(launches, routes, 1, mixed_counts(full_calls, sampler.reuse_calls))
+    _check_launches(*per_call["full"], 1)
+    _check_launches(*per_call["reuse"], 1, REUSE_PER_FORWARD)
+    if not (torch.isfinite(out).all() and ref.abs().max().item() > 0):
+        raise RuntimeError("the reuse call's output is not finite, or vacuous")
+    if not rel_plain <= 5e-3:
+        raise RuntimeError(f"reuse call kernel vs plain relative L2 {rel_plain} > 5e-3")
+
+    # c. The heatmap sampler over one window.
+    diff8 = create_diffusion(dict(cfg, timestep_respacing=ATTN_RESPACING))
+    attn_sampler = VideoSampler(model, diff8)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, maps = attn_sampler.sample_window_attn(
+        kw["x0"], kw["frame_indices"], kw["obs_mask"], kw["latent_mask"], generator=gen)
+    torch.cuda.synchronize()
+    attn_wall = time.perf_counter() - t0
+    launches, routes = read_counts()
+    counts["attn_window"] = (launches, routes)
+    calls = attn_sampler.model_calls
+    shapes = {tag: list(m.shape) for tag, m in maps.items()}
+    emit({"phase": "attn_window", "card": card, "respacing": ATTN_RESPACING,
+          "model_calls": calls, "launches": launches, "routes": routes,
+          "launches_per_call": {k: v / calls for k, v in launches.items()},
+          "wall_s": attn_wall, "ms_per_model_call": attn_wall / calls * 1e3, "maps": shapes,
+          "map_sums": {tag: m.sum().item() for tag, m in maps.items()}})
+    tokens = (S // min(model.attention_resolutions)) ** 2  # the first attention layer's
+    want = {f"attn/q{q}-{kind}": [B, T, T] if kind == "temporal" else [B, tokens, tokens]
+            for q in range(4) for kind in ("temporal", "spatial")}
+    if shapes != want:
+        raise RuntimeError(f"heatmaps {shapes} != {want}")
+    if not (torch.isfinite(img).all() and all(torch.isfinite(m).all() for m in maps.values())):
+        raise RuntimeError("the heatmap window or its maps are not finite")
+    _check_launches(launches, routes, calls, ATTN_PER_FORWARD)
+    return counts
+
+
 SYNC_EVENTS = ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaEventSynchronize")
 
@@ -1627,6 +1834,7 @@ def phase_cli(ckpt_root, card):
         _check_launches(launches, routes, calls)
         if again["written"] or again["model_calls"]:
             raise RuntimeError("the second sampling run wrote files")
+        counts.update(_cli_reuse_and_adaptive(ckpt, tmp, card))
 
         # Training: the flagship config from the flags.
         run_dir = os.path.join(tmp, "run")
@@ -1708,6 +1916,73 @@ def phase_cli(ckpt_root, card):
             os.environ["DATA_ROOT"] = saved_root
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
+    return counts
+
+
+CLI_REUSE = dict(T=40, n_obs=10, scheme="autoreg", respacing=REUSE_RESPACING)
+CLI_ADAPTIVE = dict(T=40, n_obs=10, scheme="adaptive-autoreg", respacing="ddim25")
+
+
+def _cli_reuse_and_adaptive(ckpt, tmp, card):
+    """Phase 5b d: video_sample on the fixture's reference .pt with
+    ``--encoder_reuse 3`` (autoreg, 40 frames, 10 observed, 50 ancestral
+    steps: 3 windows of 17 full and 33 reuse calls) and with
+    ``--sampling_scheme adaptive-autoreg`` (40 frames, DDIM 25) on the LPIPS
+    embedder on the card; each writes uint8 videos whose observed frames are
+    the test videos'. Then the embedder's ms per batch of frames (the
+    scheme embeds the whole (B·T)-frame buffer once per window)."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.data import datasets as data
+    from lfvdm_tpu_torch.evals.lpips import default_lpips_embedder
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.scripts import video_sample
+
+    counts = {}
+    for name, sp, extra in (("cli_reuse", CLI_REUSE, ["--encoder_reuse", str(REUSE_K)]),
+                            ("cli_adaptive", CLI_ADAPTIVE, ["--use_ddim", "True"])):
+        argv = [ckpt, "--dataset", CLI_DATASET, "--T", str(sp["T"]), "--n_obs", str(sp["n_obs"]),
+                "--max_frames", str(FLAGSHIP_K), "--batch_size", str(FLAGSHIP_B),
+                "--sampling_scheme", sp["scheme"], "--timestep_respacing", sp["respacing"],
+                "--eval_dir", os.path.join(tmp, name)] + extra
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        run = video_sample.main(argv)
+        torch.cuda.synchronize()
+        launches, routes = read_counts()
+        counts[name] = (launches, routes)
+        calls, reuse = run["model_calls"], run["reuse_calls"]
+        emit({"phase": name, "card": card, "scheme": sp["scheme"], "respacing": sp["respacing"],
+              "args": extra, "videos": len(run["written"]), "T": sp["T"], "model_calls": calls,
+              "reuse_calls": reuse, "sampling_s": run["sampling_s"],
+              "ms_per_model_call": run["sampling_s"] / calls * 1e3,
+              "launches": launches, "routes": routes})
+        check_sample_files(run["written"], data.get_test_dataset(CLI_DATASET, T=sp["T"]),
+                           range(FLAGSHIP_B), sp["n_obs"], (sp["T"], 3, 128, 128))
+        want_reuse = 3 * 33 if name == "cli_reuse" else 0
+        if (calls, reuse) != (3 * (50 if name == "cli_reuse" else 25), want_reuse):
+            raise RuntimeError(f"{name}: {calls} model calls, {reuse} reuse calls")
+        _check_launches(launches, routes, 1, mixed_counts(calls - reuse, reuse))
+
+    emb = default_lpips_embedder("cuda")
+    frames = np.random.default_rng(43).uniform(
+        -1, 1, (FLAGSHIP_B * CLI_ADAPTIVE["T"], 3, 128, 128)).astype(np.float32)
+    x = torch.as_tensor(frames, device="cuda")
+    with torch.no_grad():
+        device_ms = _device_ms(lambda: emb.module(x))
+    emb(frames)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        e = emb(frames)
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    emit({"phase": "lpips_embedder", "card": card, "frames": list(frames.shape),
+          "pretrained": emb.pretrained, "embedding": list(e.shape),
+          "ms_per_batch": host_ms, "device_ms_per_batch": device_ms,
+          "note": "ms_per_batch: numpy in, numpy out, as the adaptive schemes call it; "
+                  "device_ms_per_batch: the module's kernels on a tensor on the card"})
+    if not np.isfinite(e).all():
+        raise RuntimeError("the LPIPS embedding is not finite")
     return counts
 
 
@@ -1805,6 +2080,7 @@ def main() -> int:
     phase_unet(cfg, model)
     phase_profile(cfg, model)
     sample_launches, sample_routes, _ = phase_sample(cfg, model, diffusion)
+    reuse = phase_reuse(cfg, model, card)
     del model
     ckpt_root = os.path.join(here, "checkpoints")
     os.makedirs(ckpt_root, exist_ok=True)
@@ -1818,7 +2094,7 @@ def main() -> int:
     cli = phase_cli(ckpt_root, card)
     launches = {"train": train_launches, "sample_video": sample_launches}
     routes = {"train": train_routes, "sample_video": sample_routes}
-    for path, (c, r) in {**latent, **cli}.items():
+    for path, (c, r) in {**reuse, **latent, **cli}.items():
         launches[path], routes[path] = c, r
     emit(kernels_line(results, launches, routes))
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

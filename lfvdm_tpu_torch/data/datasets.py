@@ -494,13 +494,17 @@ class PrefetchedBatches:
     the first ``next``), so reading and normalising stay off the consumer's
     path. An error on the thread is raised in the consumer. ``source`` says
     which loader reads ("native" or "python", set by the first ``next``),
-    ``served`` counts the batches handed out. The thread ends at ``close()``
-    or when the iterator is collected (it holds no reference to it)."""
+    ``served`` counts the batches handed out. The thread stops at its next
+    batch boundary once the iterator is closed or collected (it holds no
+    reference to it); ``close()`` also waits for it to end."""
+
+    JOIN_TIMEOUT_S = 30.0
 
     def __init__(self, dataset, batch_size, T, deterministic, num_prefetch, seed):
         self._args = (dataset, batch_size, T, deterministic, num_prefetch, seed)
         self._queue: Queue = Queue(maxsize=num_prefetch)
         self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
         self.source: Optional[str] = None
         self.served = 0
 
@@ -514,8 +518,10 @@ class PrefetchedBatches:
             self.source = "python" if batches is None else "native"
             if batches is None:
                 batches = batch_generator(dataset, batch_size, deterministic, seed)
-            threading.Thread(target=_produce, args=(batches, self._queue, self._stop),
-                             daemon=True).start()
+            self._thread = threading.Thread(target=_produce,
+                                            args=(batches, self._queue, self._stop),
+                                            daemon=True)
+            self._thread.start()
         batch = self._queue.get()
         if isinstance(batch, Exception):
             raise batch
@@ -523,10 +529,14 @@ class PrefetchedBatches:
         return batch
 
     def close(self):
+        """Stop the producer and wait (up to ``JOIN_TIMEOUT_S``) for it to
+        finish the batch it is reading."""
         self._stop.set()
+        if self._thread is not None and self._thread is not threading.current_thread():
+            self._thread.join(self.JOIN_TIMEOUT_S)
 
     def __del__(self):
-        self.close()
+        self._stop.set()
 
 
 def _produce(batches, queue: Queue, stop: threading.Event):

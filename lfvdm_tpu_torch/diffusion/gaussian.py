@@ -6,18 +6,15 @@ tensors on the sampled tensor's device. Timestep respacing is folded in:
 ``timestep_map`` remaps spaced steps to original steps in ``_model_t``.
 The model is any callable ``model_fn(x, t, **kwargs) -> out``. Random
 numbers come from an explicit ``torch.Generator`` on the sampling device, or
-are injected (``noise=``) so that tests can hand both packages the same
-numbers.
-
-Not ported yet: likelihood evaluation (``calc_bpd_loop``), encoder reuse
-and the attention-weight sampler.
+are injected (``noise=``, and per step ``step_noise=``) so that tests can hand
+both packages the same numbers.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -290,24 +287,94 @@ class GaussianDiffusion:
         ``noise`` (x's shape) is drawn from ``generator`` when not given."""
         out = self.p_mean_variance(model_fn, x, t, clip_denoised=clip_denoised,
                                    denoised_fn=denoised_fn, model_kwargs=model_kwargs)
-        if noise is None:
-            noise = _randn(x.shape, x, generator)
-        nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
-        sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
-        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+        return {"sample": self._ancestral_update(out, x, t, noise, generator),
+                "pred_xstart": out["pred_xstart"]}
 
     def p_sample_loop(self, model_fn, shape: Tuple[int, ...], *, device, noise=None,
                       generator=None, clip_denoised=True, denoised_fn=None, model_kwargs=None,
-                      dtype=torch.float32) -> torch.Tensor:
-        """The full ancestral sampler, one model call per step."""
+                      dtype=torch.float32, step_noise: Optional[Sequence[torch.Tensor]] = None,
+                      return_attn_weights: bool = False, encoder_reuse: int = 1,
+                      model_fn_features=None):
+        """The full ancestral sampler, one model call per step.
+
+        ``step_noise``: the noise of each step in step order (index 0 is the
+        first, noisiest step), in place of draws from ``generator``.
+
+        ``encoder_reuse=k`` (k > 1, arXiv:2312.09608): step ``i`` runs the
+        full U-Net when ``i % k == 0`` and otherwise only its up path on the
+        features the last full call cached, with this step's timestep.
+        ``model_fn_features(x, t, features_or_None) -> (out, features)`` runs
+        the model (``model_kwargs`` bound in by the caller). Approximate by
+        design; never the default.
+
+        ``return_attn_weights``: ``model_fn`` returns ``(out, attns)`` (the
+        U-Net's ``return_attn_weights`` form, per layer (B, T, T) temporal and
+        (B, S_l, S_l) spatial maps) and the call returns ``(img,
+        {"attn/q{q}-temporal": (B, T, T), "attn/q{q}-spatial": (B, S, S)})``:
+        per step the temporal maps summed over layers and the spatial ones
+        repeat-upsampled to the first layer's S and summed, averaged over each
+        quarter of the diffusion steps (q = 4·t // num_timesteps)."""
+        if encoder_reuse > 1:
+            if model_fn_features is None:
+                raise ValueError("encoder_reuse needs model_fn_features(x, t, features) -> "
+                                 "(out, features)")
+            if return_attn_weights:
+                raise ValueError("encoder_reuse and return_attn_weights cannot be combined")
         img = noise if noise is not None else _randn(shape, None, generator, device, dtype)
         B = shape[0]
-        for s in range(self.num_timesteps - 1, -1, -1):
+        kwargs = model_kwargs or {}
+        feats = None
+        acc = None
+        quarter = self.num_timesteps / 4.0
+        for i, s in enumerate(range(self.num_timesteps - 1, -1, -1)):
             t = torch.full((B,), s, dtype=torch.int64, device=img.device)
-            img = self.p_sample(model_fn, img, t, generator=generator,
-                                clip_denoised=clip_denoised, denoised_fn=denoised_fn,
-                                model_kwargs=model_kwargs)["sample"]
-        return img
+            if encoder_reuse > 1:
+                out, feats = model_fn_features(img, self._model_t(t),
+                                               None if i % encoder_reuse == 0 else feats)
+            elif return_attn_weights:
+                out, attns = self.call_model(model_fn, img, t, kwargs)
+                if acc is None:
+                    acc = _quartile_accumulators(attns, B, img.device)
+                q = (4 * s) // self.num_timesteps
+                acc[0][q] += sum(a.float() for a in attns["temporal"]) / quarter
+                acc[1][q] += _combined_spatial(attns["spatial"], acc[1].shape[-1]) / quarter
+            else:
+                out = self.call_model(model_fn, img, t, kwargs)
+            pmv = self.p_mean_variance_from_output(out, img, t, clip_denoised=clip_denoised,
+                                                   denoised_fn=denoised_fn)
+            img = self._ancestral_update(pmv, img, t, _step(step_noise, i), generator)
+        if not return_attn_weights:
+            return img
+        maps = {}
+        for q in range(4):
+            maps[f"attn/q{q}-temporal"] = acc[0][q]
+            maps[f"attn/q{q}-spatial"] = acc[1][q]
+        return img, maps
+
+    def _ancestral_update(self, pmv, x, t, noise, generator):
+        """Draw x_{t-1} from the posterior's mean and log variance; no noise
+        at t == 0."""
+        if noise is None:
+            noise = _randn(x.shape, x, generator)
+        nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+        return pmv["mean"] + nonzero * torch.exp(0.5 * pmv["log_variance"]) * noise
+
+    def p_sample_loop_progressive(self, model_fn, shape: Tuple[int, ...], *, device, noise=None,
+                                  generator=None, clip_denoised=True, denoised_fn=None,
+                                  model_kwargs=None, dtype=torch.float32,
+                                  step_noise: Optional[Sequence[torch.Tensor]] = None
+                                  ) -> Iterator[Dict[str, torch.Tensor]]:
+        """The ancestral sampler as a generator of each step's ``p_sample``
+        output (``sample`` and ``pred_xstart``), noisiest step first."""
+        img = noise if noise is not None else _randn(shape, None, generator, device, dtype)
+        B = shape[0]
+        for i, s in enumerate(range(self.num_timesteps - 1, -1, -1)):
+            t = torch.full((B,), s, dtype=torch.int64, device=img.device)
+            out = self.p_sample(model_fn, img, t, noise=_step(step_noise, i),
+                                generator=generator, clip_denoised=clip_denoised,
+                                denoised_fn=denoised_fn, model_kwargs=model_kwargs)
+            yield out
+            img = out["sample"]
 
     def ddim_sample(self, model_fn, x, t, *, eta=0.0, noise=None, generator=None,
                     clip_denoised=True, denoised_fn=None,
@@ -327,6 +394,17 @@ class GaussianDiffusion:
                 noise = _randn(x.shape, x, generator)
             nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
             sample = sample + nonzero * sigma * noise
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_reverse_sample(self, model_fn, x, t, *, clip_denoised=True, denoised_fn=None,
+                            model_kwargs=None) -> Dict[str, torch.Tensor]:
+        """One deterministic DDIM reverse-ODE step x_t -> x_{t+1}."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised=clip_denoised,
+                                   denoised_fn=denoised_fn, model_kwargs=model_kwargs)
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar_next = self._extract("alphas_cumprod_next", t, x.ndim)
+        sample = (out["pred_xstart"] * torch.sqrt(alpha_bar_next)
+                  + torch.sqrt(1 - alpha_bar_next) * eps)
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
     def ddim_sample_loop(self, model_fn, shape: Tuple[int, ...], *, device, noise=None,
@@ -419,6 +497,50 @@ class GaussianDiffusion:
         return terms
 
 
+    # ---- likelihood evaluation ----
+
+    def _prior_bpd(self, x_start, latent_mask=None) -> torch.Tensor:
+        """KL(q(x_T | x_0) || N(0, I)) in bits per dim, (B,)."""
+        t = torch.full((x_start.shape[0],), self.num_timesteps - 1, dtype=torch.int64,
+                       device=x_start.device)
+        qt_mean, _, qt_log_variance = self.q_mean_variance(x_start, t)
+        kl_prior = normal_kl(qt_mean, qt_log_variance, 0.0, 0.0)
+        return mean_flat(kl_prior, mask=latent_mask) / np.log(2.0)
+
+    def calc_bpd_loop(self, model_fn, x_start, *, generator=None,
+                      noise: Optional[Sequence[torch.Tensor]] = None, clip_denoised=True,
+                      model_kwargs=None, latent_mask=None, t_seq=None) -> Dict[str, torch.Tensor]:
+        """The variational bound of ``x_start`` over every timestep, or over
+        ``t_seq``: a 1-D list of timesteps shared by the batch or a (B, S)
+        array of per-element ones. Each term draws x_t with noise from
+        ``generator``, or with ``noise[i]`` for the i-th term. Returns
+        ``total_bpd`` and ``prior_bpd`` (B,) and ``vb``, ``xstart_mse`` and
+        ``mse`` (B, S)."""
+        B = x_start.shape[0]
+        if t_seq is None:
+            t_seq = np.arange(self.num_timesteps)[::-1]
+        t_seq = np.asarray(t_seq)
+        t_mat = np.tile(t_seq[None], (B, 1)) if t_seq.ndim == 1 else t_seq
+        t_mat = torch.as_tensor(np.ascontiguousarray(t_mat.T), dtype=torch.int64,
+                                device=x_start.device)  # (S, B)
+        vb, xstart_mse, mse = [], [], []
+        for i, t_batch in enumerate(t_mat):
+            eps_true = _step(noise, i)
+            if eps_true is None:
+                eps_true = _randn(x_start.shape, x_start, generator)
+            x_t = self.q_sample(x_start, t_batch, noise=eps_true)
+            out = self._vb_terms_bpd(model_fn, x_start, x_t, t_batch,
+                                     clip_denoised=clip_denoised, model_kwargs=model_kwargs,
+                                     latent_mask=latent_mask)
+            vb.append(out["output"])
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2, mask=latent_mask))
+            eps = self._predict_eps_from_xstart(x_t, t_batch, out["pred_xstart"])
+            mse.append(mean_flat((eps - eps_true) ** 2, mask=latent_mask))
+        vb, xstart_mse, mse = (torch.stack(v, dim=1) for v in (vb, xstart_mse, mse))  # (B, S)
+        prior_bpd = self._prior_bpd(x_start, latent_mask=latent_mask)
+        return {"total_bpd": vb.sum(dim=1) + prior_bpd, "prior_bpd": prior_bpd, "vb": vb,
+                "xstart_mse": xstart_mse, "mse": mse}
+
 def _randn(shape, like=None, generator=None, device=None, dtype=None):
     """Standard normal noise of ``shape`` from ``generator``, on ``like``'s
     device and dtype (or ``device``/``dtype``). The global RNG is never used."""
@@ -427,3 +549,32 @@ def _randn(shape, like=None, generator=None, device=None, dtype=None):
     if like is not None:
         device, dtype = like.device, like.dtype
     return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
+
+
+def _step(noise: Optional[Sequence[torch.Tensor]], i: int) -> Optional[torch.Tensor]:
+    """The i-th step's injected noise, or None to draw it."""
+    return None if noise is None else noise[i]
+
+
+def _quartile_accumulators(attns, B: int, device):
+    """Zeroed (4, B, T, T) and (4, B, S, S) f32 sums, S the first layer's."""
+    T = attns["temporal"][0].shape[-1]
+    S = attns["spatial"][0].shape[-1]
+    return (torch.zeros(4, B, T, T, dtype=torch.float32, device=device),
+            torch.zeros(4, B, S, S, dtype=torch.float32, device=device))
+
+
+def _combined_spatial(layers, S: int) -> torch.Tensor:
+    """The layers' (B, S_l, S_l) maps repeat-upsampled to (B, S, S) and
+    summed. Repeating keeps each map's mean, so the reference's
+    renormalisation after its interpolation is the identity here."""
+    acc = 0
+    for a in layers:
+        a = a.float()
+        r = S // a.shape[-1]
+        if r * a.shape[-1] != S:
+            raise ValueError(f"spatial map of size {a.shape[-1]} does not divide {S}")
+        if r > 1:
+            a = a.repeat_interleave(r, dim=-2).repeat_interleave(r, dim=-1)
+        acc = acc + a
+    return acc

@@ -219,7 +219,8 @@ class UNetVideoModel(nn.Module):
       obs_mask:      (B, T, 1, 1, 1) — 1 where the frame is observed
       latent_mask:   (B, T, 1, 1, 1) — 1 where the frame is being generated
     Returns (out, attns): out (B, T, out_C, H, W) f32; attns is None unless
-    ``return_attn_weights``. ``impl="plain"`` runs every kernel's plain
+    ``return_attn_weights``; with ``return_features`` (out, attns, features)
+    (see ``forward``). ``impl="plain"`` runs every kernel's plain
     version (for comparisons on the card). ``fused_skip_conv`` (an attribute
     that may be changed after construction) routes the up path's skip
     projections through ``ops.skipconv.skip_conv_stats``.
@@ -287,23 +288,18 @@ class UNetVideoModel(nn.Module):
             Conv2d(ch, out_channels, 3, padding=1, dtype=torch.float32, zero=True))
 
     def forward(self, x, timesteps, *, x0, frame_indices, obs_mask, latent_mask,
-                return_attn_weights: bool = False, impl: str = "auto"):
+                return_attn_weights: bool = False, impl: str = "auto", features=None,
+                return_features: bool = False):
+        """See the class docstring. Encoder reuse (arXiv:2312.09608): with
+        ``return_features`` the call also returns ``(middle_h, skips)``;
+        passing that tuple back as ``features`` skips the stem, the down path
+        and the middle and runs only the up path and the head, with the
+        timestep embedding of *this* call. ``features=None`` is the full
+        forward."""
         B, T, C, Hs, Ws = x.shape
         if timesteps.ndim == 1:
             timesteps = timesteps[:, None].expand(B, T)
         attn_mask = (obs_mask + latent_mask).clamp(0, 1).reshape(B, T)
-
-        # Observed frames bypass noising; an indicator channel marks them.
-        obs = obs_mask.to(x.dtype)
-        indicator = torch.ones_like(x[:, :, :1]) * obs
-        if os.environ.get("LFVDM_BREAK_OBS_INDICATOR", "0") == "1":
-            # DIAGNOSTIC ONLY: the network can no longer tell observed
-            # frames from latents (the quality gate's broken-arm calibration).
-            print("WARNING: LFVDM_BREAK_OBS_INDICATOR=1 — obs-indicator "
-                  "channel ZEROED (diagnostic broken-arm)")
-            indicator = torch.zeros_like(indicator)
-        x_in = torch.cat([x * (1 - obs) + x0 * obs, indicator], dim=2)
-        h = x_in.reshape(B * T, C + 1, Hs, Ws).to(self.dtype)
 
         emb = timestep_embedding(timesteps.reshape(B * T), self.model_channels)
         emb = self.time_embed(emb.to(self.dtype))
@@ -312,13 +308,29 @@ class UNetVideoModel(nn.Module):
                      dict(T=T, return_attn=return_attn_weights, impl=impl))
 
         attns = []
-        hs = []
-        for block in self.input_blocks:
-            h, a, _ = block(h, emb, attn_args)
+        if features is None:
+            # Observed frames bypass noising; an indicator channel marks them.
+            obs = obs_mask.to(x.dtype)
+            indicator = torch.ones_like(x[:, :, :1]) * obs
+            if os.environ.get("LFVDM_BREAK_OBS_INDICATOR", "0") == "1":
+                # DIAGNOSTIC ONLY: the network can no longer tell observed
+                # frames from latents (the quality gate's broken-arm calibration).
+                print("WARNING: LFVDM_BREAK_OBS_INDICATOR=1 — obs-indicator "
+                      "channel ZEROED (diagnostic broken-arm)")
+                indicator = torch.zeros_like(indicator)
+            x_in = torch.cat([x * (1 - obs) + x0 * obs, indicator], dim=2)
+            h = x_in.reshape(B * T, C + 1, Hs, Ws).to(self.dtype)
+            hs = []
+            for block in self.input_blocks:
+                h, a, _ = block(h, emb, attn_args)
+                attns += a
+                hs.append(h)
+            h, a, _ = self.middle_block(h, emb, attn_args)
             attns += a
-            hs.append(h)
-        h, a, _ = self.middle_block(h, emb, attn_args)
-        attns += a
+        else:
+            h, skips = features
+            hs = list(skips)
+        out_features = (h, tuple(hs)) if return_features else None
         # Up path: the input GroupNorm of each block takes per-part channel
         # sums; the h part comes from the previous block's skip projection
         # when it emitted them and nothing came between.
@@ -333,10 +345,13 @@ class UNetVideoModel(nn.Module):
             attns += a
 
         out = self.out(h).reshape(B, T, self.out_channels, Hs, Ws)
-        if not return_attn_weights:
-            return out, None
-        return out, {"temporal": [a["temporal"] for a in attns],
-                     "spatial": [a["spatial"] for a in attns]}
+        weights = None
+        if return_attn_weights:
+            weights = {"temporal": [a["temporal"] for a in attns],
+                       "spatial": [a["spatial"] for a in attns]}
+        if return_features:
+            return out, weights, out_features
+        return out, weights
 
 
 def fused_skip_blocks(model: nn.Module) -> int:

@@ -1,8 +1,8 @@
 """Flexible long-video sampling schemes (host-side index planners).
 
 A copy of lfvdm_tpu/sampling/schemes.py, kept so that the port imports
-without JAX. The adaptive schemes need an LPIPS embedder, which the port
-does not have yet: pass ``embedder=`` explicitly.
+without JAX. The adaptive schemes default to the port's own LPIPS embedder
+(``evals/lpips.py``) on the device they are given.
 
 Capability parity: the reference implementation's improved_diffusion/sampling_schemes.py.
 
@@ -221,18 +221,18 @@ class AdaptiveSamplingSchemeBase(SamplingSchemeBase):
     """Greedy max-min perceptual-distance selection of conditioning frames.
 
     ``embedder`` maps a batch of frames to embeddings whose squared L2
-    distance equals the perceptual (LPIPS) distance — see
-    lfvdm_tpu/evals/lpips.py for the JAX embedder, not yet ported. Per
-    batch element the conditioning set differs, so __next__ yields
-    per-element index lists.
+    distance equals the perceptual (LPIPS) distance; by default the
+    process's ``evals.lpips.default_lpips_embedder`` on ``device`` (the card
+    unless the caller names another). Per batch element the conditioning set
+    differs, so __next__ yields per-element index lists.
     """
 
-    def __init__(self, *args, embedder: Optional[Embedder] = None, **kwargs):
+    def __init__(self, *args, embedder: Optional[Embedder] = None, device="cuda", **kwargs):
         super().__init__(*args, **kwargs)
         if embedder is None:
-            raise NotImplementedError(
-                "adaptive schemes need an LPIPS embedder, which the PyTorch "
-                "port does not have yet; pass embedder=")
+            from ..evals.lpips import default_lpips_embedder
+
+            embedder = default_lpips_embedder(device)
         self._embedder = embedder
         self.videos: Optional[np.ndarray] = None
 

@@ -108,9 +108,6 @@ def resolve_run_identity(args) -> str:
 def _not_ported(args):
     if args.fsdp != 1:
         raise NotImplementedError("--fsdp > 1 waits for data parallelism (ROADMAP A5)")
-    if args.log_attn:
-        raise NotImplementedError("--log_attn needs sample_window_attn, which is not ported "
-                                  "yet (ROADMAP A4)")
 
 
 def main(argv=None):

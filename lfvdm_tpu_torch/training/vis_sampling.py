@@ -4,10 +4,11 @@ On a fixed vis batch: deterministic obs/latent masks (the first third
 observed; row 1 strided), one window sampled with the EMA weights, the
 composite of observed and sampled frames decoded, the observed frames marked
 with a red border, a gif per video. The sampler's noise comes from a
-``torch.Generator`` seeded from ``seed`` on the loop's device. One process:
-the gather of the weights across processes waits for data parallelism
-(ROADMAP A5); the attention heatmaps (``log_attn``) wait for
-``sample_window_attn`` (ROADMAP A4).
+``torch.Generator`` seeded from ``seed`` on the loop's device. With
+``log_attn`` the window is sampled by ``VideoSampler.sample_window_attn`` and
+its per-quartile attention heatmaps are saved as ``.npy`` beside the gifs.
+One process: the gather of the weights across processes waits for data
+parallelism (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -44,11 +45,11 @@ def make_sample_fn(vis_batch: np.ndarray, *, ema_rate: str = None, out_dir: str 
     weights (``ema_rate``, default the largest saved) and, with ``out_dir``,
     writes ``step<step>_video<i>.gif`` there and logs each path. The EMA
     weights are copied into the loop's model for the window and the raw
-    ones put back after it. Returns the marked uint8 videos (B, K, C, H, W).
+    ones put back after it. With ``log_attn`` the per-quartile attention
+    heatmaps (reference gaussian_diffusion.py:448-469) are saved too, as
+    ``step<step>_attn_q<q>-{temporal,spatial}.npy``. Returns the marked uint8
+    videos (B, K, C, H, W).
     """
-    if log_attn:
-        raise NotImplementedError("log_attn needs sample_window_attn, which is not ported "
-                                  "yet (ROADMAP A4)")
 
     def sample_fn(loop):
         from ..sampling.driver import VideoSampler
@@ -80,9 +81,14 @@ def make_sample_fn(vis_batch: np.ndarray, *, ema_rate: str = None, out_dir: str 
             with torch.no_grad():
                 for n, p in named.items():
                     p.copy_(ema[n])
-            local = VideoSampler(loop.model, loop.diffusion).sample_window(
-                batch, fi, obs_m, lat_m,
-                generator=torch.Generator(device=dev).manual_seed(seed))
+            sampler = VideoSampler(loop.model, loop.diffusion)
+            generator = torch.Generator(device=dev).manual_seed(seed)
+            if log_attn:
+                local, attns = sampler.sample_window_attn(batch, fi, obs_m, lat_m,
+                                                          generator=generator)
+            else:
+                local = sampler.sample_window(batch, fi, obs_m, lat_m, generator=generator)
+                attns = {}
         finally:
             with torch.no_grad():
                 for n, p in named.items():
@@ -100,6 +106,9 @@ def make_sample_fn(vis_batch: np.ndarray, *, ema_rate: str = None, out_dir: str 
                 path = f"{out_dir}/step{loop.step:06d}_video{i}.gif"
                 tensor2gif(vid, path, drange=(0, 255))
                 logger.logkv(f"video-{i}", path, distributed=False)
+            for tag, arr in attns.items():
+                np.save(f"{out_dir}/step{loop.step:06d}_{tag.replace('/', '_')}.npy",
+                        arr.cpu().numpy())
         return vids
 
     return sample_fn

@@ -295,3 +295,30 @@ def test_cli_paths_in_the_kernels_line():
     for e in line["kernels"]:
         assert set(e["launches_by_path"]) == set(paths)
         assert e["launches_by_path"]["cli_sample"] == counts[e["name"]]
+
+
+# ---- the reuse phase's pieces ----
+
+
+def test_reuse_counts_are_the_flagship_structure():
+    """The reuse and heatmap launch counts that phase 5b requires are what a
+    U-Net of the flagship's structure (128 px, one res block, attention at ds
+    8 and 16; narrow channels here) derives, and a window's mixed count is
+    full calls x 7 + 7 + 10 plus reuse calls x 4 + 4 + 10."""
+    from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
+    from lfvdm_tpu_torch.models.unet import attention_blocks, fused_skip_blocks
+
+    cfg = dict(flagship_config(), num_channels=32, compute_dtype="float32")
+    model, _ = create_model_and_diffusion(cfg, device="cpu")
+    assert (attention_blocks(model), fused_skip_blocks(model)) == (7, 10)
+    assert chip_smoke.reuse_forward_counts(model) == (chip_smoke.REUSE_PER_FORWARD,
+                                                      chip_smoke.ATTN_PER_FORWARD)
+    assert chip_smoke.mixed_counts(17, 33) == {"temporal_rpe_attention": 7 * 17 + 4 * 33,
+                                               "spatial_attention": 7 * 17 + 4 * 33,
+                                               "skip_conv_stats": 10 * 50}
+    counts = chip_smoke.mixed_counts(17, 33)
+    good = {"spatial_attention": {"mma": 251, "fma": 0},
+            "skip_conv_stats": {"generic": 0, "bulk": 500}}
+    chip_smoke._check_launches(counts, good, 1, counts)
+    with pytest.raises(RuntimeError, match="launch counts"):  # 50 full calls' counts
+        chip_smoke._check_launches(counts, good, 50)

@@ -206,8 +206,6 @@ def test_just_visualise_png_equals_jax_script(pt64, tmp_path, monkeypatch):
 
 
 def test_unported_sources_and_flags_raise_naming_the_roadmap(pt64, tmp_path):
-    with pytest.raises(NotImplementedError, match="A4"):
-        video_sample.main([pt64] + SAMPLE_ARGS + ["--encoder_reuse", "2"])
     with pytest.raises(NotImplementedError, match="A5"):
         video_sample.main([pt64] + SAMPLE_ARGS + ["--dp_devices", "2"])
     (tmp_path / "params.msgpack").write_bytes(b"")
@@ -218,12 +216,6 @@ def test_unported_sources_and_flags_raise_naming_the_roadmap(pt64, tmp_path):
         video_sample.main([str(tmp_path / "orbax")] + SAMPLE_ARGS)
     with pytest.raises(NotImplementedError, match="A5"):
         video_train.main(TRAIN_ARGS + ["--fsdp", "2"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        video_train.main(TRAIN_ARGS + ["--log_attn", "True"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        from lfvdm_tpu_torch.training.vis_sampling import make_sample_fn
-
-        make_sample_fn(np.zeros((1, 4, 3, 8, 8), np.float32), log_attn=True)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")

@@ -1,8 +1,11 @@
 """The port's CLIs accept every flag of the repo's JAX scripts, with the
 same default, and add only ``--device``; their ``--help`` runs in a fresh
 interpreter where JAX, flax, orbax and the JAX package cannot be imported.
+The JAX ``video_optimal_schedule.py`` builds its parser inside ``main()``:
+its parser is caught at ``parse_args``.
 """
 
+import argparse
 import importlib
 import subprocess
 import sys
@@ -10,18 +13,39 @@ from pathlib import Path
 
 import pytest
 
-from lfvdm_tpu_torch.scripts import video_sample, video_train
+from lfvdm_tpu_torch.scripts import video_optimal_schedule, video_sample, video_train
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT = {"video_sample": video_sample, "video_train": video_train}
+PORT = {"video_sample": video_sample, "video_train": video_train,
+        "video_optimal_schedule": video_optimal_schedule}
+
+
+class _Parsed(Exception):
+    def __init__(self, parser):
+        self.parser = parser
 
 
 def _jax_parser(name):
     sys.path.insert(0, str(ROOT / "scripts"))
     try:
-        return importlib.import_module(name).create_argparser()
+        module = importlib.import_module(name)
     finally:
         sys.path.pop(0)
+    if hasattr(module, "create_argparser"):
+        return module.create_argparser()
+
+    def caught(parser, *args, **kwargs):
+        raise _Parsed(parser)
+
+    saved = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = caught
+    try:
+        module.main()
+    except _Parsed as e:
+        return e.parser
+    finally:
+        argparse.ArgumentParser.parse_args = saved
+    raise AssertionError(f"{name}.main() built no parser")
 
 
 def _options(parser):
@@ -33,7 +57,7 @@ def _options(parser):
     return flags, positional
 
 
-@pytest.mark.parametrize("name", ["video_sample", "video_train"])
+@pytest.mark.parametrize("name", ["video_sample", "video_train", "video_optimal_schedule"])
 def test_every_jax_flag_with_its_default(name):
     jflags, jpos = _options(_jax_parser(name))
     tflags, tpos = _options(PORT[name].create_argparser())
@@ -51,7 +75,7 @@ def test_every_jax_flag_with_its_default(name):
     assert tflags["--device"].default == "cuda"
 
 
-@pytest.mark.parametrize("name", ["video_sample", "video_train"])
+@pytest.mark.parametrize("name", ["video_sample", "video_train", "video_optimal_schedule"])
 def test_same_values_parsed(name):
     """Each flag of a typical command line parses to the same value."""
     argv = {"video_sample": ["ckpt.pt", "--sampling_scheme", "hierarchy-2", "--T", "300",
@@ -59,7 +83,10 @@ def test_same_values_parsed(name):
                              "--max_frames", "20", "--just_visualise"],
             "video_train": ["--dataset", "carla_no_traffic", "--T", "100", "--batch_size", "2",
                             "--resume", "t", "--attention_resolutions", "16,8",
-                            "--learn_sigma", "False", "--lr", "3e-4"]}[name]
+                            "--learn_sigma", "False", "--lr", "3e-4"],
+            "video_optimal_schedule": ["--eval_dir", "ev", "--sampling_scheme", "hierarchy-2",
+                                       "--optimality", "lpips", "--T", "300",
+                                       "--max_frames", "20", "--num_videos", "4"]}[name]
     want = vars(_jax_parser(name).parse_args(argv))
     got = vars(PORT[name].create_argparser().parse_args(argv))
     assert got.pop("device") == "cuda"
@@ -82,7 +109,7 @@ runpy.run_module("lfvdm_tpu_torch.scripts.{name}", run_name="__main__")
 """
 
 
-@pytest.mark.parametrize("name", ["video_sample", "video_train"])
+@pytest.mark.parametrize("name", ["video_sample", "video_train", "video_optimal_schedule"])
 def test_help_runs_with_jax_blocked(name):
     run = subprocess.run([sys.executable, "-c", HELP.format(name=name)], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

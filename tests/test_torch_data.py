@@ -146,12 +146,17 @@ def test_get_test_dataset_equals_jax(name, T, tmp_path, monkeypatch):
 
 class _NumpyOwnRandom:
     """numpy, with ``np.random.randint`` drawing from a stream per thread: the
-    n-th thread to draw gets ``RandomState(n)``. Each module gets one, so
-    its loader threads draw the same streams in the same order whatever the
-    other module's threads do meanwhile."""
+    n-th thread started after this proxy to draw gets ``RandomState(n)``.
+    Each module gets one, so its loader threads draw the same streams in the
+    same order whatever the other module's threads do meanwhile. A thread
+    that was alive before the proxy (a loader of an earlier test finishing
+    its batch: the JAX loader's thread never stops) draws from a stream of
+    its own that is not counted, so it cannot take stream 0."""
 
     def __init__(self):
         self._streams = {}
+        self._earlier = set(threading.enumerate())
+        self._stale = np.random.RandomState(2**31)
         self._lock = threading.Lock()
         self.random = types.SimpleNamespace(randint=self._randint,
                                             default_rng=np.random.default_rng)
@@ -159,6 +164,8 @@ class _NumpyOwnRandom:
     def _randint(self, *args, **kwargs):
         with self._lock:
             me = threading.current_thread()
+            if me in self._earlier:
+                return self._stale.randint(*args, **kwargs)
             if me not in self._streams:
                 self._streams[me] = np.random.RandomState(len(self._streams))
         return self._streams[me].randint(*args, **kwargs)
@@ -180,7 +187,11 @@ def test_prefetch_loader_batches_equal_jax(name, deterministic, tmp_path, monkey
     monkeypatch.setattr(tdata, "np", _NumpyOwnRandom())
     T = 4 if name != "synthetic" else 6
     kw = dict(batch_size=2, T=T, deterministic=deterministic, seed=5)
-    got = _take(tdata.load_data(name, **kw), 6)  # three epochs of CARLA's 5 videos
+    loader = tdata.load_data(name, **kw)
+    try:
+        got = _take(loader, 6)  # three epochs of CARLA's 5 videos
+    finally:
+        loader.close()
     want = _take(jdata.load_data(name, **kw), 6)
     for a, b in zip(got, want):
         assert a.shape == (2, T) + b.shape[2:] and a.dtype == np.float32

@@ -4,8 +4,9 @@ An AST scan of every module of ``lfvdm_tpu_torch`` and of ``chip_smoke.py``
 (which runs on a machine without JAX) for ``import`` statements naming
 ``jax``, ``flax``, ``optax``, ``orbax``, ``lfvdm_tpu``, the repo's
 ``scripts`` or ``diffusers`` (on neither machine); and the latent slice's
-modules, the entry points and their data, checkpoint and logging modules
-imported in a fresh interpreter where those names cannot be found.
+modules, the entry points and their data, checkpoint and logging modules,
+the LPIPS embedder and the optimal-schedule script imported in a fresh
+interpreter where those names cannot be found.
 """
 
 import ast
@@ -47,7 +48,8 @@ def test_scan_covers_the_package():
                      "lfvdm_tpu_torch/scripts/video_train.py",
                      "lfvdm_tpu_torch/training/vis_sampling.py", "lfvdm_tpu_torch/utils/paths.py",
                      "lfvdm_tpu_torch/utils/rng.py", "lfvdm_tpu_torch/utils/video_io.py",
-                     "lfvdm_tpu_torch/utils/logger.py", "chip_smoke.py"):
+                     "lfvdm_tpu_torch/utils/logger.py", "lfvdm_tpu_torch/evals/lpips.py",
+                     "lfvdm_tpu_torch/scripts/video_optimal_schedule.py", "chip_smoke.py"):
         assert expected in names
 
 
@@ -82,6 +84,7 @@ import lfvdm_tpu_torch.training.train_loop, lfvdm_tpu_torch.config, chip_smoke
 import lfvdm_tpu_torch.scripts.video_sample, lfvdm_tpu_torch.scripts.video_train
 import lfvdm_tpu_torch.data.native_loader, lfvdm_tpu_torch.training.vis_sampling
 import lfvdm_tpu_torch.utils.paths, lfvdm_tpu_torch.utils.rng, lfvdm_tpu_torch.utils.video_io
+import lfvdm_tpu_torch.evals.lpips, lfvdm_tpu_torch.scripts.video_optimal_schedule
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")

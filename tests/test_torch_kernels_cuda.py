@@ -391,3 +391,51 @@ def test_skip_conv_bad_inputs_raise(cuda):
         skipconv.skip_conv_stats(x1.half(), x2.half(), w.half(), b.half(), r.half())
     with pytest.raises(ValueError):
         skipconv.skip_conv_stats(x1, x2, w[:, :15], b, r)
+
+
+def _tiny_unet(dtype):
+    """The tiny config's U-Net on the card in ``dtype``, its zero-initialised
+    layers given small random values (``chip_smoke.randomize_zero_modules``)."""
+    from chip_smoke import randomize_zero_modules
+    from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
+
+    cfg = dict(flagship_config(tiny=True), compute_dtype=dtype)
+    model, _ = create_model_and_diffusion(cfg, device="cuda", seed=0)
+    randomize_zero_modules(model, torch.Generator().manual_seed(1))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, T, C, S = 2, 6, cfg["in_channels"], cfg["image_size"]
+    x = torch.randn(B, T, C, S, S, generator=gen, device="cuda")
+    obs = torch.zeros(B, T, 1, 1, 1, device="cuda")
+    obs[:, :2] = 1
+    kw = dict(x0=torch.rand(B, T, C, S, S, generator=gen, device="cuda") * 2 - 1,
+              frame_indices=torch.arange(T, device="cuda")[None].expand(B, T) * 3,
+              obs_mask=obs, latent_mask=1 - obs)
+    return model, x, torch.tensor([300.0, 40.0], device="cuda"), kw
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("dtype,limit", [("float32", 1e-4), ("bfloat16", 5e-3)])
+def test_unet_reuse_and_heatmap_calls_launch_their_kernels(cuda, dtype, limit):
+    """A reuse call (``features=``) launches the up path's attention kernels
+    and every skip projection, and matches its plain path; a heatmap call
+    (``return_attn_weights``) launches only the skip projections."""
+    from lfvdm_tpu_torch.models.unet import FactorizedAttentionBlock, fused_skip_blocks
+
+    model, x, t, kw = _tiny_unet(dtype)
+    up_attn = sum(isinstance(m, FactorizedAttentionBlock) for m in model.output_blocks.modules())
+    skips = fused_skip_blocks(model)
+    with torch.no_grad():
+        _, _, feats = model(x, t, return_features=True, **kw)
+        ops.reset_launch_counts()
+        out, _ = model(x, t - 20, features=feats, **kw)
+        assert ops.launch_counts() == {"temporal_rpe_attention": up_attn,
+                                       "spatial_attention": up_attn, "skip_conv_stats": skips}
+        ref, _ = model(x, t - 20, features=feats, impl="plain", **kw)
+        assert torch.isfinite(out).all() and _rel(out, ref) <= limit
+        ops.reset_launch_counts()
+        model(x, t, return_attn_weights=True, **kw)
+        assert ops.launch_counts() == {"temporal_rpe_attention": 0, "spatial_attention": 0,
+                                       "skip_conv_stats": skips}

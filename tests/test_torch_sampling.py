@@ -232,8 +232,12 @@ def test_adaptive_scheme_matches_jax_with_a_given_embedder():
         return out
 
     assert run(t_schemes) == run(j_schemes)
-    with pytest.raises(NotImplementedError, match="LPIPS"):
-        t_schemes["adaptive-autoreg"](video_length=16, num_obs=3, max_frames=6, step_size=2)
+    # Without one, the scheme takes the port's default LPIPS embedder.
+    from lfvdm_tpu_torch.evals.lpips import LpipsEmbedder
+
+    s = t_schemes["adaptive-autoreg"](video_length=16, num_obs=3, max_frames=6, step_size=2,
+                                      device="cpu")
+    assert isinstance(s._embedder, LpipsEmbedder)
 
 
 def test_driver_windows_match_jax_indices(models):
