@@ -105,7 +105,26 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                e. phase 5b d (above) on the same fixture.
                Every model call launches 7 + 7 + 10 kernels on "mma"/"bulk"
                (a reuse call 4 + 4 + 10).
- 10. the "kernels" summary line, then {"ok": true, "device": {...}} last.
+ 10. evals   — at PyTorch's TF32 defaults (the evals turn TF32 off in their own
+               scope), on seeded fixtures in a temporary directory; no port
+               kernel launches on this path:
+               a. I3D on the card against the machine's CPU, one seeded
+                  (1, 16, 224, 224, 3) f32 clip (relative L2 <= 1e-3);
+               b. video_fvd.main with --real_dir on two sample-format sets of
+                  16 uint8 videos (16 frames) at 128 px and at 256 px (the
+                  antialiased resize): FVD of a set against itself |.| < 1,
+                  between the sets finite and > 0; ms per video of features
+                  and seconds per FVD;
+               c. video_to_world_coords.main over the 128 px samples with a
+                  seeded full ResNet-152 classifier and regressor saved as
+                  torchvision-layout .pt (batch 64): one finite (16, 2) file
+                  per video, a second run writes nothing, 4 frames card vs
+                  CPU (relative L2 <= 1e-3), ms per frame;
+               d. carla_regressor_train.main, one epoch of each mode on a
+                  CARLA-layout fixture with coords_*.npy siblings (3 + 1
+                  videos of 8 frames at 128 px): finite losses, and the
+                  checkpoints it writes load into the predictor of c.
+ 11. the "kernels" summary line, then {"ok": true, "device": {...}} last.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the lfvdm_tpu_torch package is not beside this script.
@@ -2057,6 +2076,217 @@ def _host_batch_ms_back_to_back(loop, n):
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the evals — FVD with I3D, the CARLA coordinate regressor, the scripts
+# ---------------------------------------------------------------------------
+
+EVALS_VIDEOS, EVALS_T = 16, 16  # per sample-format set; frames per video
+EVALS_SIZES = (128, 256)  # the flagship's pixels, and the latent path's decoded ones
+EVALS_COORDS_BATCH = 64
+EVALS_TRAIN = dict(n_train=3, n_test=1, T=8, size=128)  # 24 train frames: 6 steps of 4
+
+
+def _rel_l2(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _write_sample_sets(samples_dir, size, seed):
+    """Two sample-format sets of EVALS_VIDEOS uint8 (EVALS_T, 3, size, size)
+    videos in one samples directory: set A as ``sample_XXXX-0.npy`` (uniform
+    noise), set B as ``sample_XXXX-1.npy`` (the same noise, box-blurred over
+    3x3 pixels: another distribution)."""
+    import numpy as np
+
+    os.makedirs(samples_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(EVALS_VIDEOS):
+        a = rng.integers(0, 256, (EVALS_T, 3, size, size), dtype=np.uint8)
+        pad = np.pad(a.astype(np.float32), ((0, 0), (0, 0), (1, 1), (1, 1)), mode="edge")
+        b = sum(pad[..., dy:dy + size, dx:dx + size] for dy in range(3) for dx in range(3)) / 9
+        np.save(os.path.join(samples_dir, f"sample_{i:04d}-0.npy"), a)
+        np.save(os.path.join(samples_dir, f"sample_{i:04d}-1.npy"), b.astype(np.uint8))
+
+
+def write_regressor_fixture(root, seed=50, n_train=3, n_test=1, T=8, size=128):
+    """The CARLA layout carla_regressor_train reads: video_{train,test}.csv,
+    uint8 (T, size, size, 3) ``.pt`` videos and (T, 3) ``coords_*.npy``
+    world coordinates in the Town01 range, drawn from ``seed``."""
+    import numpy as np
+    import torch
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    splits = {"train": [], "test": []}
+    for i in range(n_train + n_test):
+        name = f"video_{i:05d}.pt"
+        torch.save(torch.from_numpy(rng.integers(0, 256, (T, size, size, 3), dtype=np.uint8)),
+                   os.path.join(root, name))
+        np.save(os.path.join(root, f"coords_{i:05d}.npy"),
+                rng.uniform(-10, 400, (T, 3)).astype(np.float32))
+        splits["train" if i < n_train else "test"].append(name)
+    for split, names in splits.items():
+        with open(os.path.join(root, f"video_{split}.csv"), "w") as f:
+            f.write("".join(f"videos/{n}\n" for n in names))
+    return root
+
+
+def phase_evals(ckpt_root, card):
+    """Phase 10, at PyTorch's TF32 defaults (the evals' own scope turns TF32
+    off): a. I3D on the card against the machine's CPU; b. video_fvd.main
+    with --real_dir at 128 and 256 px (self ≈ 0, cross > 0); c.
+    video_to_world_coords.main with a seeded full-width classifier and
+    regressor; d. carla_regressor_train.main, one epoch of each mode, whose
+    checkpoints the predictor loads. No port kernel launches on this path."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.evals import carla_regressor as cr
+    from lfvdm_tpu_torch.evals.fvd import FVD, preprocess
+    from lfvdm_tpu_torch.evals.i3d import I3DFeatureExtractor
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.scripts import carla_regressor_train, video_fvd, video_to_world_coords
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_evals_", dir=ckpt_root)
+    ops.reset_launch_counts()
+    try:
+        # a. I3D, card against CPU.
+        clip = np.random.default_rng(40).uniform(-1, 1, (1, 16, 224, 224, 3)).astype(np.float32)
+        t0 = time.perf_counter()
+        want = I3DFeatureExtractor(device="cpu")(clip)
+        cpu_s = time.perf_counter() - t0
+        ext = I3DFeatureExtractor(device="cuda")
+        got = ext(clip)
+        x = torch.as_tensor(clip, device="cuda").permute(0, 4, 1, 2, 3)
+        row = {"phase": "evals_i3d", "card": card, "clip": list(clip.shape),
+               "rel_l2_vs_cpu": _rel_l2(got, want), "bound": 1e-3, "cpu_s": cpu_s,
+               "device_ms_per_clip": cuda_ms(lambda: ext.features(x), 5, warmup=1),
+               "tf32_after": [torch.backends.cudnn.allow_tf32,
+                              torch.backends.cuda.matmul.allow_tf32]}
+        emit(row)
+        if not (np.isfinite(got).all() and row["rel_l2_vs_cpu"] <= 1e-3):
+            raise RuntimeError(f"I3D on the card vs the CPU: {row['rel_l2_vs_cpu']}")
+        del ext, x
+
+        # b. video_fvd at 128 and 256 px.
+        eval_dirs = []
+        for size in EVALS_SIZES:
+            eval_dir = os.path.join(tmp, f"eval_{size}")
+            _write_sample_sets(os.path.join(eval_dir, "samples"), size, seed=41 + size)
+            with open(os.path.join(eval_dir, "model_config.json"), "w") as f:
+                json.dump({"dataset": "synthetic", "T": EVALS_T}, f)
+            eval_dirs.append(eval_dir)
+            videos = np.stack([np.load(os.path.join(eval_dir, "samples", f"sample_{i:04d}-0.npy"))
+                               .transpose(0, 2, 3, 1) for i in range(EVALS_VIDEOS)])
+            fvd = FVD(batch_size=EVALS_VIDEOS, device="cuda")
+            fvd.extract_features(videos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = fvd.extract_features(videos)
+            features_ms = (time.perf_counter() - t0) / EVALS_VIDEOS * 1e3
+            on_card = torch.as_tensor(videos, device="cuda")
+            resize_ms = cuda_ms(lambda: preprocess(on_card), 5, warmup=1) / EVALS_VIDEOS
+            del fvd, on_card
+            scores, wall = {}, {}
+            for which, idx in (("self", 0), ("cross", 1)):
+                argv = ["--eval_dir", eval_dir, "--num_videos", str(EVALS_VIDEOS),
+                        "--sample_idx", str(idx), "--real_dir", os.path.join(eval_dir, "samples")]
+                t0 = time.perf_counter()
+                scores[which] = video_fvd.main(argv)
+                wall[which] = time.perf_counter() - t0
+            again = video_fvd.main(argv)
+            row = {"phase": "evals_fvd", "card": card, "size": size,
+                   "videos": [EVALS_VIDEOS, EVALS_T, size, size, 3],
+                   "antialias": size > 224, "fvd_self": scores["self"],
+                   "fvd_cross": scores["cross"], "features_ms_per_video": features_ms,
+                   "resize_device_ms_per_video": resize_ms,
+                   "s_per_fvd": wall, "features_finite": bool(np.isfinite(feats).all()),
+                   "second_run_reads_file": again == scores["cross"],
+                   "note": "s_per_fvd: video_fvd.main wall time, I3D set-up and file reads "
+                           "included; features_ms_per_video: one 16-video chunk, uint8 "
+                           "upload to features on the host; resize_device_ms_per_video: the "
+                           "resize and scale alone (CUDA events)"}
+            emit(row)
+            if not (abs(scores["self"]) < 1 and math.isfinite(scores["cross"])
+                    and scores["cross"] > 0 and row["features_finite"]
+                    and again == scores["cross"]):
+                raise RuntimeError(f"FVD at {size} px: {row}")
+
+        # c. video_to_world_coords with a seeded classifier and regressor.
+        paths = []
+        for name, module in (("classifier", cr.ResNet152Classifier()),
+                             ("regressor", cr.MultiHeadResNet152())):
+            paths.append(os.path.join(tmp, f"{name}.pt"))
+            torch.save(cr.seeded_init(module, seed=len(paths)).state_dict(), paths[-1])
+        argv = ["--eval_dir", eval_dirs[0], "--classifier_path", paths[0],
+                "--regressor_path", paths[1], "--batch_size", str(EVALS_COORDS_BATCH)]
+        t0 = time.perf_counter()
+        written = video_to_world_coords.main(argv)
+        coords_s = time.perf_counter() - t0
+        again = video_to_world_coords.main(argv)
+        shapes = sorted({np.load(p).shape for p in written})
+        finite = all(np.isfinite(np.load(p)).all() for p in written)
+        pred = cr.load_classifier_regressor_like_paper(*paths, device="cuda")
+        cpu = cr.load_classifier_regressor_like_paper(*paths, device="cpu")
+        frames = np.load(os.path.join(eval_dirs[0], "samples", "sample_0000-0.npy"))
+        four = frames[:4].astype(np.float32)
+        rel = _rel_l2(pred.predict_coords(four), cpu.predict_coords(four))
+        batch = np.concatenate([frames] * (EVALS_COORDS_BATCH // EVALS_T)).astype(np.float32)
+        pred.predict_coords(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_coords(batch)
+        ms_per_frame = (time.perf_counter() - t0) / len(batch) * 1e3
+        n_frames = 2 * EVALS_VIDEOS * EVALS_T
+        row = {"phase": "evals_coords", "card": card, "videos": len(written),
+               "frames": n_frames, "size": EVALS_SIZES[0],
+               "coords_shapes": [list(s) for s in shapes],
+               "finite": finite, "second_run_written": len(again),
+               "rel_l2_vs_cpu_4_frames": rel, "bound": 1e-3,
+               "script_ms_per_frame": coords_s / n_frames * 1e3,
+               "ms_per_frame_batch_64": ms_per_frame,
+               "note": "script_ms_per_frame: video_to_world_coords.main wall time over its "
+                       "16-frame videos (one batch each), checkpoint loading, model set-up "
+                       "and file reads included; "
+                       "ms_per_frame_batch_64: predict_coords on 64 frames, numpy in and out"}
+        emit(row)
+        if not (len(written) == 2 * EVALS_VIDEOS and shapes == [(EVALS_T, 2)] and finite
+                and not again and rel <= 1e-3):
+            raise RuntimeError(f"world coordinates: {row}")
+        del pred, cpu
+
+        # d. carla_regressor_train, one epoch of each mode.
+        data_dir = write_regressor_fixture(os.path.join(tmp, "carla"), **EVALS_TRAIN)
+        ckpts = []
+        for is_classifier in (True, False):
+            out_dir = os.path.join(tmp, f"regressor_{is_classifier}")
+            t0 = time.perf_counter()
+            run = carla_regressor_train.main(["--data_dir", data_dir, "--num_epochs", "1",
+                                              "--is_classifier", str(is_classifier),
+                                              "--out_dir", out_dir])
+            wall_s = time.perf_counter() - t0
+            losses = run["epochs"][0]
+            emit({"phase": "evals_regressor_train", "card": card,
+                  "is_classifier": is_classifier, "frames": EVALS_TRAIN, "losses": losses,
+                  "saved": [os.path.basename(p) for p in run["saved"]], "wall_s": wall_s})
+            if not (all(math.isfinite(v) for v in losses.values()) and len(run["saved"]) == 1):
+                raise RuntimeError(f"regressor training: {run}")
+            ckpts.append(run["saved"][0])
+        trained = cr.load_classifier_regressor_like_paper(*ckpts, device="cuda")
+        coords = trained.predict_coords(four)
+        emit({"phase": "evals_trained_predictor", "card": card, "coords": coords.tolist()})
+        if coords.shape != (4, 2) or not np.isfinite(coords).all():
+            raise RuntimeError(f"the trained checkpoints gave {coords}")
+        launches, _ = read_counts()
+        if any(launches.values()):
+            raise RuntimeError(f"the evals path launched port kernels: {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2092,6 +2322,8 @@ def main() -> int:
     phase_train_parity()
     latent = phase_latent(ckpt_root, card)
     cli = phase_cli(ckpt_root, card)
+    with torch_tf32_defaults():
+        phase_evals(ckpt_root, card)
     launches = {"train": train_launches, "sample_video": sample_launches}
     routes = {"train": train_routes, "sample_video": sample_routes}
     for path, (c, r) in {**reuse, **latent, **cli}.items():

@@ -31,7 +31,7 @@ from ..diffusion.codecs import make_codec_from_config
 from ..sampling.driver import VideoSampler
 from ..sampling.schemes import sampling_schemes
 from ..training import checkpoint as ckpt_lib
-from ..utils.device import process_index_and_count, resolve_device
+from ..utils.device import process_index_and_count, resolve_device, setup_distributed
 from ..utils.locks import Protect
 from ..utils.paths import get_eval_run_identifier, get_model_results_path
 
@@ -157,9 +157,10 @@ def create_argparser():
 
 
 def shard_indices_for_process(indices):
-    """Each process of a ``torch.distributed`` group takes an interleaved
-    shard of the video indices; the outputs are idempotent per video, so an
-    overlap is harmless. One process keeps the full list."""
+    """Each process of a ``torch.distributed`` group (``torchrun`` starts
+    one per card) takes an interleaved shard of the video indices; the
+    outputs are idempotent per video, so an overlap is harmless. One process
+    keeps the full list."""
     rank, count = process_index_and_count()
     if count == 1:
         return indices
@@ -189,6 +190,7 @@ def main(argv=None):
     if args.dp_devices != 1:
         raise NotImplementedError("--dp_devices > 1 waits for data parallelism (ROADMAP A5)")
     device = resolve_device(args.device)
+    setup_distributed(device)
 
     if args.stop_index is None:
         task_id = int(os.environ.get("SLURM_ARRAY_TASK_ID", 0))

@@ -23,7 +23,7 @@ from ..data.datasets import default_image_size_dict, default_T_dict, load_data, 
 from ..diffusion.codecs import make_codec
 from ..diffusion.resample import create_named_schedule_sampler
 from ..training.train_loop import TrainLoop
-from ..utils.device import process_index_and_count, resolve_device
+from ..utils.device import process_index_and_count, resolve_device, setup_distributed
 from ..utils.logger import logger
 
 # Keys of a reference checkpoint's config that win over the flags with
@@ -84,8 +84,7 @@ def create_argparser():
 def resolve_run_identity(args) -> str:
     """The run id: ``--resume_id`` resumes that run (checkpoint dir
     checkpoints/<id>, wandb resume under the same id); a fresh run draws
-    one. The default checkpoint_dir is keyed by it, an explicit one wins.
-    Every process of a group takes rank 0's id."""
+    one. The default checkpoint_dir is keyed by it, an explicit one wins."""
     import uuid
 
     default_dir = create_argparser().get_default("checkpoint_dir")
@@ -94,12 +93,6 @@ def resolve_run_identity(args) -> str:
         args.resume = True
     else:
         run_id = uuid.uuid4().hex[:8]
-        if process_index_and_count()[1] > 1:
-            import torch.distributed as dist
-
-            box = [run_id]
-            dist.broadcast_object_list(box, src=0)
-            run_id = box[0]
     if args.checkpoint_dir == default_dir:
         args.checkpoint_dir = os.path.join("checkpoints", run_id)
     return run_id
@@ -110,12 +103,28 @@ def _not_ported(args):
         raise NotImplementedError("--fsdp > 1 waits for data parallelism (ROADMAP A5)")
 
 
+def _refuse_group():
+    """A group of more than one process would train that many unsynchronised
+    copies: every rank leaves the group (so none waits on another) and
+    raises."""
+    import torch.distributed as dist
+
+    rank, count = process_index_and_count()
+    if count > 1:
+        dist.destroy_process_group()
+        raise NotImplementedError(
+            f"rank {rank} of {count}: multi-process training waits for data parallelism "
+            "(ROADMAP A5); launch one process")
+
+
 def main(argv=None):
     """Run the CLI on ``argv`` (default: the command line); returns the
     ``TrainLoop`` after its run."""
     args = create_argparser().parse_args(argv)
     _not_ported(args)
     device = resolve_device(args.device)
+    setup_distributed(device)
+    _refuse_group()
     run_id = resolve_run_identity(args)
     if args.unobserve:
         os.environ["WANDB_MODE"] = "dryrun"

@@ -14,7 +14,11 @@ checkpoint's names), so a JAX checkpoint loads with ``load_state_dict``.
 optax Adam state, step) onto the port's ``TrainState.state_dict()`` format.
 ``vae_state_dict_from_jax`` maps the JAX SVD VAE's encoder and decoder
 variables onto ``models/vae.py``'s (diffusers') names: the exact inverse of
-``scripts/convert_svd_vae.py``'s ``convert``.
+``scripts/convert_svd_vae.py``'s ``convert``. ``i3d_state_dict_from_jax``
+maps the JAX I3D's flat ``.npz`` (or variables) onto ``evals/i3d.py``, and
+``resnet152_state_dict_from_jax`` the JAX CARLA classifier's or regressor's
+variables onto torchvision's layout, the exact inverse of
+``lfvdm_tpu/evals/carla_regressor.py``'s ``convert_resnet152_state_dict``.
 
 Layouts:
   flax Dense kernel (in, out)         -> torch Linear weight (out, in)
@@ -265,6 +269,96 @@ def vae_state_dict_from_jax(enc_vars: Mapping, dec_vars: Mapping) -> Dict[str, t
     _gn(sd, "decoder.conv_norm_out", dec["conv_norm_out"])
     _conv_nd(sd, "decoder.conv_out", dec["conv_out"])
     _conv_nd(sd, "decoder.time_conv_out", dec["time_conv_out"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# The evals: I3D and the CARLA ResNet-152s
+# ---------------------------------------------------------------------------
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def i3d_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX I3D's weights -> ``evals.i3d.I3D``'s state_dict.
+
+    ``variables``: the flat ``.npz`` mapping (``params/<path>/conv_3d/kernel``,
+    ``params/<path>/beta``, ``batch_stats/<path>/moving_mean``, ...) or the
+    nested variables dict (whose scope names such as ``Branch_0/Conv3d_0a_1x1``
+    flatten to the same keys). ``<path>`` becomes the module path with ``.``
+    for ``/``; a (kt, kh, kw, in, out) kernel becomes (out, in, kt, kh, kw)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in _flatten(variables).items():
+        parts = key.split("/")[1:]  # drop the collection
+        leaf = parts.pop()
+        if parts[-1] == "conv_3d":
+            parts.pop()
+        if leaf == "kernel":
+            sd[".".join(parts + ["weight"])] = _t(np.asarray(value).transpose(4, 3, 0, 1, 2))
+        else:
+            sd[".".join(parts + [leaf])] = _t(value)
+    return sd
+
+
+def _stage_sizes(trunk: Mapping):
+    """Blocks per stage of a JAX ``ResNet152Trunk`` tree (``layer{s}_{b}``)."""
+    sizes = [0, 0, 0, 0]
+    for name in trunk:
+        if name.startswith("layer"):
+            stage, block = name[5:].split("_")
+            sizes[int(stage) - 1] = max(sizes[int(stage) - 1], int(block) + 1)
+    return sizes
+
+
+def resnet152_state_dict_from_jax(variables: Mapping, multi_head: bool = False
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX ``ResNet152Classifier`` / ``MultiHeadResNet152`` variables
+    (``{"params", "batch_stats"}``, numpy leaves) -> torchvision's state_dict
+    layout: ``conv1``, ``bn1``, ``layer{s}.{b}.conv{i}`` / ``bn{i}`` /
+    ``downsample.0`` / ``downsample.1`` and ``fc``; the regressor's trunk
+    under ``resnet.`` with its heads as ``regressors.{i}``. The stage sizes
+    are read from the tree, so a cut-down trunk converts too."""
+    params, stats = variables["params"], variables["batch_stats"]
+    prefix = "resnet." if multi_head else ""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(dst, p):
+        sd[f"{prefix}{dst}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+    def bn(dst, p, s):
+        sd[f"{prefix}{dst}.weight"] = _t(p["scale"])
+        sd[f"{prefix}{dst}.bias"] = _t(p["bias"])
+        sd[f"{prefix}{dst}.running_mean"] = _t(s["mean"])
+        sd[f"{prefix}{dst}.running_var"] = _t(s["var"])
+
+    trunk, trunk_stats = params["trunk"], stats["trunk"]
+    conv("conv1", trunk["conv1"])
+    bn("bn1", trunk["bn1"], trunk_stats["bn1"])
+    for stage, n_blocks in enumerate(_stage_sizes(trunk)):
+        for block in range(n_blocks):
+            src, dst = f"layer{stage + 1}_{block}", f"layer{stage + 1}.{block}"
+            p, s = trunk[src], trunk_stats[src]
+            for i in (1, 2, 3):
+                conv(f"{dst}.conv{i}", p[f"conv{i}"])
+                bn(f"{dst}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
+            if "downsample_conv" in p:
+                conv(f"{dst}.downsample.0", p["downsample_conv"])
+                bn(f"{dst}.downsample.1", p["downsample_bn"], s["downsample_bn"])
+    if multi_head:
+        kernels, biases = np.asarray(params["head_kernels"]), np.asarray(params["head_biases"])
+        for i in range(len(kernels)):
+            sd[f"regressors.{i}.weight"] = _t(kernels[i].T)
+            sd[f"regressors.{i}.bias"] = _t(biases[i])
+    else:
+        _lin(sd, "fc", params["fc"])
     return sd
 
 

@@ -1,8 +1,8 @@
 """The port's CLIs accept every flag of the repo's JAX scripts, with the
 same default, and add only ``--device``; their ``--help`` runs in a fresh
 interpreter where JAX, flax, orbax and the JAX package cannot be imported.
-The JAX ``video_optimal_schedule.py`` builds its parser inside ``main()``:
-its parser is caught at ``parse_args``.
+The JAX ``video_optimal_schedule.py`` and ``carla_regressor_train.py`` build
+their parsers inside ``main()``: those are caught at ``parse_args``.
 """
 
 import argparse
@@ -13,11 +13,21 @@ from pathlib import Path
 
 import pytest
 
-from lfvdm_tpu_torch.scripts import video_optimal_schedule, video_sample, video_train
+from lfvdm_tpu_torch.scripts import (
+    carla_regressor_train,
+    video_fvd,
+    video_make_mp4,
+    video_optimal_schedule,
+    video_sample,
+    video_to_world_coords,
+    video_train,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = {"video_sample": video_sample, "video_train": video_train,
-        "video_optimal_schedule": video_optimal_schedule}
+        "video_optimal_schedule": video_optimal_schedule, "video_fvd": video_fvd,
+        "video_to_world_coords": video_to_world_coords, "video_make_mp4": video_make_mp4,
+        "carla_regressor_train": carla_regressor_train}
 
 
 class _Parsed(Exception):
@@ -57,7 +67,7 @@ def _options(parser):
     return flags, positional
 
 
-@pytest.mark.parametrize("name", ["video_sample", "video_train", "video_optimal_schedule"])
+@pytest.mark.parametrize("name", list(PORT))
 def test_every_jax_flag_with_its_default(name):
     jflags, jpos = _options(_jax_parser(name))
     tflags, tpos = _options(PORT[name].create_argparser())
@@ -75,7 +85,7 @@ def test_every_jax_flag_with_its_default(name):
     assert tflags["--device"].default == "cuda"
 
 
-@pytest.mark.parametrize("name", ["video_sample", "video_train", "video_optimal_schedule"])
+@pytest.mark.parametrize("name", list(PORT))
 def test_same_values_parsed(name):
     """Each flag of a typical command line parses to the same value."""
     argv = {"video_sample": ["ckpt.pt", "--sampling_scheme", "hierarchy-2", "--T", "300",
@@ -86,7 +96,15 @@ def test_same_values_parsed(name):
                             "--learn_sigma", "False", "--lr", "3e-4"],
             "video_optimal_schedule": ["--eval_dir", "ev", "--sampling_scheme", "hierarchy-2",
                                        "--optimality", "lpips", "--T", "300",
-                                       "--max_frames", "20", "--num_videos", "4"]}[name]
+                                       "--max_frames", "20", "--num_videos", "4"],
+            "video_fvd": ["--eval_dir", "ev", "--num_videos", "16", "--T", "300",
+                          "--real_dir", "reals", "--temporal_stride", "2", "--batch_size", "8"],
+            "video_to_world_coords": ["--eval_dir", "ev", "--classifier_path", "c.pt",
+                                      "--regressor_path", "r.pt", "--batch_size", "32"],
+            "video_make_mp4": ["--eval_dir", "ev", "--add_gt", "no", "--do_n", "3",
+                               "--n_seeds", "2", "--obs_length", "36", "--format", "mp4"],
+            "carla_regressor_train": ["--data_dir", "d", "--is_classifier", "True",
+                                      "--lr", "0.01", "--num_epochs", "3"]}[name]
     want = vars(_jax_parser(name).parse_args(argv))
     got = vars(PORT[name].create_argparser().parse_args(argv))
     assert got.pop("device") == "cuda"
@@ -109,7 +127,7 @@ runpy.run_module("lfvdm_tpu_torch.scripts.{name}", run_name="__main__")
 """
 
 
-@pytest.mark.parametrize("name", ["video_sample", "video_train", "video_optimal_schedule"])
+@pytest.mark.parametrize("name", list(PORT))
 def test_help_runs_with_jax_blocked(name):
     run = subprocess.run([sys.executable, "-c", HELP.format(name=name)], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

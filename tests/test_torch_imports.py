@@ -5,8 +5,9 @@ An AST scan of every module of ``lfvdm_tpu_torch`` and of ``chip_smoke.py``
 ``jax``, ``flax``, ``optax``, ``orbax``, ``lfvdm_tpu``, the repo's
 ``scripts`` or ``diffusers`` (on neither machine); and the latent slice's
 modules, the entry points and their data, checkpoint and logging modules,
-the LPIPS embedder and the optimal-schedule script imported in a fresh
-interpreter where those names cannot be found.
+the LPIPS embedder, the optimal-schedule script, and the evals (FVD, I3D, the
+CARLA regressor) with their four scripts imported in a fresh interpreter
+where those names cannot be found.
 """
 
 import ast
@@ -49,7 +50,13 @@ def test_scan_covers_the_package():
                      "lfvdm_tpu_torch/training/vis_sampling.py", "lfvdm_tpu_torch/utils/paths.py",
                      "lfvdm_tpu_torch/utils/rng.py", "lfvdm_tpu_torch/utils/video_io.py",
                      "lfvdm_tpu_torch/utils/logger.py", "lfvdm_tpu_torch/evals/lpips.py",
-                     "lfvdm_tpu_torch/scripts/video_optimal_schedule.py", "chip_smoke.py"):
+                     "lfvdm_tpu_torch/scripts/video_optimal_schedule.py",
+                     "lfvdm_tpu_torch/evals/fvd.py", "lfvdm_tpu_torch/evals/i3d.py",
+                     "lfvdm_tpu_torch/evals/carla_regressor.py",
+                     "lfvdm_tpu_torch/scripts/video_fvd.py",
+                     "lfvdm_tpu_torch/scripts/video_to_world_coords.py",
+                     "lfvdm_tpu_torch/scripts/video_make_mp4.py",
+                     "lfvdm_tpu_torch/scripts/carla_regressor_train.py", "chip_smoke.py"):
         assert expected in names
 
 
@@ -85,6 +92,9 @@ import lfvdm_tpu_torch.scripts.video_sample, lfvdm_tpu_torch.scripts.video_train
 import lfvdm_tpu_torch.data.native_loader, lfvdm_tpu_torch.training.vis_sampling
 import lfvdm_tpu_torch.utils.paths, lfvdm_tpu_torch.utils.rng, lfvdm_tpu_torch.utils.video_io
 import lfvdm_tpu_torch.evals.lpips, lfvdm_tpu_torch.scripts.video_optimal_schedule
+import lfvdm_tpu_torch.evals.fvd, lfvdm_tpu_torch.evals.i3d, lfvdm_tpu_torch.evals.carla_regressor
+import lfvdm_tpu_torch.scripts.video_fvd, lfvdm_tpu_torch.scripts.video_to_world_coords
+import lfvdm_tpu_torch.scripts.video_make_mp4, lfvdm_tpu_torch.scripts.carla_regressor_train
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")
