@@ -51,6 +51,21 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                fixture: video_sample --encoder_reuse 3 and --sampling_scheme
                adaptive-autoreg (LPIPS embedder on the card), and the
                embedder's ms per batch of 80 frames at 128 px.
+  5c. serve  — the exported window sampler (lfvdm_tpu_torch.serving) on the
+               flagship model (phase_serve): a. export_window_sampler, DDIM
+               ddim25, eta 0: export seconds and artifact bytes; b. that
+               artifact and params.npz served from a seed in a fresh subprocess
+               that imports lfvdm_tpu_torch.serving and none of the model,
+               config, diffusion or sampling modules: load seconds, ms per
+               window and per step (CUDA events, wall), 25 x (7 + 7 + 10)
+               launches on "mma"/"bulk"; c. the live window (VideoSampler DDIM,
+               the same weights and initial noise) against the served one
+               (relative L2 <= 5e-3), both timed in turns; d. an ancestral
+               artifact (respacing 50): one finite window of the right shape,
+               50 x (7 + 7 + 10) launches; e. after phase 6, on its run
+               directory (phase_serve_params): export_params writes the EMA
+               weights as a flax .msgpack, and video_sample's loader reads it
+               into a U-Net whose output equals the run directory's, bitwise.
   6. train   — the training path: TrainLoop on the flagship config (B=2, K=20,
                bf16) over the synthetic dataset at 128 px (prefetched on a
                thread): warm-up steps, then timed steps (finite losses,
@@ -1085,6 +1100,254 @@ def phase_reuse(cfg, model, card):
         raise RuntimeError("the heatmap window or its maps are not finite")
     _check_launches(launches, routes, calls, ATTN_PER_FORWARD)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the exported window sampler
+# ---------------------------------------------------------------------------
+
+SERVE_RESPACING = "ddim25"
+SERVE_ANCESTRAL_RESPACING = "50"
+SERVE_SEED = 60
+SERVE_TIMED_WINDOWS = 2
+# Modules a serving process must not import: the model, config, diffusion and
+# sampling code, and the JAX side.
+SERVE_BLOCKED = ("lfvdm_tpu_torch.models", "lfvdm_tpu_torch.config", "lfvdm_tpu_torch.sampling",
+                 "lfvdm_tpu_torch.diffusion", "lfvdm_tpu", "jax", "flax")
+# The serving process: imports lfvdm_tpu_torch.serving and nothing of the
+# model's code (a finder refuses it), loads params.npz and sampler.pt2 from
+# the directory argv[1] names, samples the window of window.npz from its
+# seed (launches counted from 0 just before), then times SERVE_TIMED_WINDOWS
+# more; prints one JSON line.
+SERVE_CHILD = r"""
+import importlib.abc, json, sys, time
+BLOCKED = {blocked!r}
+def blocked(name):
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if blocked(name):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+d = sys.argv[1]
+t0 = time.perf_counter()
+from lfvdm_tpu_torch import serving
+from lfvdm_tpu_torch.ops import attention as ops
+params = serving.load_params_npz(d + "/params.npz", device="cuda")
+with open(d + "/sampler.pt2", "rb") as f:
+    run = serving.load_window_sampler(f.read())
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+w = np.load(d + "/window.npz")
+win = [torch.from_numpy(w[k]).cuda() for k in ("x0", "frame_indices", "obs_mask", "latent_mask")]
+seed = int(w["seed"])
+ops.reset_launch_counts()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+out = run(params, *win, seed)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+launches = ops.launch_counts()
+routes = {{n: dict(getattr(ops, n).launches_by_route)
+          for n in ("spatial_attention", "skip_conv_stats")}}
+np.save(d + "/served.npy", out.cpu().numpy())
+device_ms, wall_ms = [], []
+for _ in range({timed}):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    run(params, *win, seed)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms.append((time.perf_counter() - t0) * 1e3)
+    device_ms.append(start.elapsed_time(end))
+print(json.dumps({{"load_s": load_s, "first_window_s": first_s, "launches": launches,
+                  "routes": routes, "steps": run.meta["num_timesteps"],
+                  "window_device_ms": device_ms, "window_wall_ms": wall_ms,
+                  "blocked_imported": sorted(m for m in sys.modules if blocked(m))}}))
+"""
+
+
+def _event_and_wall_ms_in_turns(fns, n_turns=2):
+    """Per call of each of ``fns`` (name -> fn), in turns (A, B, B, A for two)
+    after a warm-up call each: CUDA-event ms (from the first launch to the
+    last on the stream) and host wall ms, each call ending in a synchronise."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    out = {name: {"device_ms": [], "wall_ms": []} for name in fns}
+    order = list(fns)
+    for i in range(n_turns):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            fns[name]()
+            end.record()
+            torch.cuda.synchronize()
+            out[name]["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            out[name]["device_ms"].append(start.elapsed_time(end))
+    return out
+
+
+def phase_serve(cfg, model, card, tmp_root):
+    """The exported window sampler on the flagship model (128 px, B=2, K=20,
+    bf16), as a serving process runs it (lfvdm_tpu_torch.serving):
+      a. export_window_sampler, DDIM (ddim25, eta 0): export seconds and the
+         artifact's bytes;
+      b. the artifact and params.npz served in a fresh subprocess that imports
+         lfvdm_tpu_torch.serving and none of the model, config, diffusion or
+         sampling modules: one window from a seed, 25 x (7 + 7 + 10) launches on
+         "mma"/"bulk", load seconds, ms per window and per step (CUDA events
+         and wall);
+      c. the live window (VideoSampler DDIM, the same weights and initial
+         noise) against the served one (relative L2 <= 5e-3), and the two
+         timed in turns in this process;
+      d. an ancestral artifact (respacing 50): one window, finite, the
+         window's shape, 50 x (7 + 7 + 10) launches.
+    Returns the launch counts and routes by path."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch import serving
+    from lfvdm_tpu_torch.config import create_diffusion
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.sampling.driver import VideoSampler
+
+    B, K, C, S = FLAGSHIP_B, FLAGSHIP_K, cfg["in_channels"], cfg["image_size"]
+    params = dict(model.state_dict())
+    shape = dict(batch_size=B, max_frames=K, in_channels=C, image_size=S)
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    _, _, kw = window_inputs(cfg, "cuda", gen)
+    window = [kw[k] for k in ("x0", "frame_indices", "obs_mask", "latent_mask")]
+    counts = {}
+
+    # a. Export the DDIM sampler.
+    ddim = create_diffusion(dict(cfg, timestep_respacing=SERVE_RESPACING))
+    t0 = time.perf_counter()
+    blob = serving.export_window_sampler(model, ddim, params, use_ddim=True, eta=0.0, **shape)
+    export_s = time.perf_counter() - t0
+
+    # b. Serve it in a fresh process.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=tmp_root)
+    try:
+        with open(os.path.join(tmp, "sampler.pt2"), "wb") as f:
+            f.write(blob)
+        serving.save_params_npz(params, os.path.join(tmp, "params.npz"))
+        np.savez(os.path.join(tmp, "window.npz"), seed=SERVE_SEED,
+                 **{k: kw[k].cpu().numpy() for k in ("x0", "frame_indices", "obs_mask",
+                                                      "latent_mask")})
+        child = subprocess.run(
+            [sys.executable, "-c", SERVE_CHILD.format(blocked=SERVE_BLOCKED,
+                                                      timed=SERVE_TIMED_WINDOWS), tmp],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600)
+        if child.returncode != 0:
+            raise RuntimeError(f"the serving process failed:\n{child.stderr[-4000:]}")
+        served_row = json.loads(child.stdout.strip().splitlines()[-1])
+        served = torch.from_numpy(np.load(os.path.join(tmp, "served.npy"))).cuda()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = served_row["steps"]
+    counts["serve"] = (served_row["launches"], served_row["routes"])
+
+    # c. The live window from the same seed (so the same initial noise), and
+    # the served and live windows timed in turns in this process.
+    live_sampler = VideoSampler(model, ddim, use_ddim=True, eta=0.0)
+
+    def live():
+        return live_sampler.sample_window(
+            *window, generator=torch.Generator(device="cuda").manual_seed(SERVE_SEED))
+
+    run = serving.load_window_sampler(blob)
+    with torch.no_grad():
+        ref = live()
+        rel = ((served - ref).norm() / ref.norm()).item()
+        turns = _event_and_wall_ms_in_turns(
+            {"served": lambda: run(params, *window, SERVE_SEED), "live": live})
+
+    # d. An ancestral artifact, one window.
+    ancestral = create_diffusion(dict(cfg, timestep_respacing=SERVE_ANCESTRAL_RESPACING))
+    t0 = time.perf_counter()
+    blob_a = serving.export_window_sampler(model, ancestral, params, **shape)
+    export_a_s = time.perf_counter() - t0
+    run_a = serving.load_window_sampler(blob_a)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_a = run_a(params, *window, SERVE_SEED + 1)
+    torch.cuda.synchronize()
+    anc_s = time.perf_counter() - t0
+    launches_a, routes_a = read_counts()
+    counts["serve_ancestral"] = (launches_a, routes_a)
+
+    per_step = {name: {k: [x / steps for x in v] for k, v in t.items()}
+                for name, t in turns.items()}
+    row = {"phase": "serve", "card": card, "respacing": SERVE_RESPACING, "sampler": "ddim",
+           "window": [B, K, C, S, S], "export_s": export_s, "artifact_bytes": len(blob),
+           "params_bytes": sum(p.numel() * p.element_size() for p in params.values()),
+           "serving_process": {k: served_row[k] for k in ("load_s", "first_window_s",
+                                                          "window_device_ms", "window_wall_ms",
+                                                          "blocked_imported")},
+           "serving_process_ms_per_step": {
+               "device": [x / steps for x in served_row["window_device_ms"]],
+               "wall": [x / steps for x in served_row["window_wall_ms"]]},
+           "launches": served_row["launches"], "routes": served_row["routes"], "steps": steps,
+           "served_vs_live_rel_l2": rel, "in_turns_ms_per_window": turns,
+           "in_turns_ms_per_step": per_step, "max_abs_live": ref.abs().max().item()}
+    emit(row)
+    emit({"phase": "serve_ancestral", "card": card, "respacing": SERVE_ANCESTRAL_RESPACING,
+          "export_s": export_a_s, "artifact_bytes": len(blob_a), "window_s": anc_s,
+          "steps": run_a.meta["num_timesteps"], "launches": launches_a, "routes": routes_a,
+          "max_abs": out_a.abs().max().item()})
+    if served_row["blocked_imported"]:
+        raise RuntimeError(f"the serving process imported {served_row['blocked_imported']}")
+    if steps != 25 or run_a.meta["num_timesteps"] != 50:
+        raise RuntimeError(f"the artifacts run {steps} and {run_a.meta['num_timesteps']} steps, "
+                           "not 25 and 50")
+    _check_launches(served_row["launches"], served_row["routes"], steps)
+    _check_launches(launches_a, routes_a, 50)
+    if not (torch.isfinite(served).all() and ref.abs().max().item() > 0):
+        raise RuntimeError("the served window is not finite, or the live one vacuous")
+    if not rel <= 5e-3:
+        raise RuntimeError(f"served vs live window relative L2 {rel} > 5e-3")
+    if tuple(out_a.shape) != (B, K, C, S, S) or not torch.isfinite(out_a).all():
+        raise RuntimeError(f"the ancestral window is {tuple(out_a.shape)} or not finite")
+    return counts
+
+
+def phase_serve_params(ckpt_dir, card):
+    """e. of phase 5c, on phase 6's run directory: export_params writes the
+    EMA weights as a flax .msgpack of the JAX tree, and video_sample's loader
+    reads it back; its U-Net output equals the run directory's, bitwise."""
+    import torch
+
+    from lfvdm_tpu_torch.config import flagship_config
+    from lfvdm_tpu_torch.scripts import export_params, video_sample
+
+    t0 = time.perf_counter()
+    path = export_params.main([ckpt_dir, "--ema_rate", "0.9999"])
+    export_s = time.perf_counter() - t0
+    load = dict(use_ddim=True, timestep_respacing=SERVE_RESPACING, device="cuda")
+    from_msgpack, _, _ = video_sample.load_model_from_checkpoint(path, **load)
+    from_run, _, _ = video_sample.load_model_from_checkpoint(ckpt_dir, ema_rate="0.9999", **load)
+    x, t, kw = window_inputs(flagship_config(), "cuda",
+                             torch.Generator(device="cuda").manual_seed(62))
+    with torch.no_grad():
+        a, _ = from_msgpack.eval()(x, t, **kw)
+        b, _ = from_run.eval()(x, t, **kw)
+    equal = bool(torch.equal(a, b))
+    emit({"phase": "serve_export_params", "card": card, "msgpack": os.path.basename(path),
+          "msgpack_bytes": os.path.getsize(path), "export_s": export_s,
+          "unet_outputs_bitwise_equal": equal, "max_abs_out": b.abs().max().item()})
+    if not equal:
+        raise RuntimeError("the U-Net from the exported .msgpack differs from the run "
+                           f"directory's (max |diff| {(a - b).abs().max().item()})")
 
 
 SYNC_EVENTS = ("aten::_local_scalar_dense", "cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -2311,12 +2574,14 @@ def main() -> int:
     phase_profile(cfg, model)
     sample_launches, sample_routes, _ = phase_sample(cfg, model, diffusion)
     reuse = phase_reuse(cfg, model, card)
-    del model
     ckpt_root = os.path.join(here, "checkpoints")
     os.makedirs(ckpt_root, exist_ok=True)
+    serve = phase_serve(cfg, model, card, ckpt_root)
+    del model
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=ckpt_root)
     try:
         train_launches, train_routes = phase_train(ckpt_dir)
+        phase_serve_params(ckpt_dir, card)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     phase_train_parity()
@@ -2326,7 +2591,7 @@ def main() -> int:
         phase_evals(ckpt_root, card)
     launches = {"train": train_launches, "sample_video": sample_launches}
     routes = {"train": train_routes, "sample_video": sample_routes}
-    for path, (c, r) in {**reuse, **latent, **cli}.items():
+    for path, (c, r) in {**reuse, **serve, **latent, **cli}.items():
         launches[path], routes[path] = c, r
     emit(kernels_line(results, launches, routes))
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

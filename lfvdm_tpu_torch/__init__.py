@@ -12,6 +12,7 @@ Package layout:
                 diffusion factory
   models/     — video U-Net, RPE attention, NN primitives, the SVD VAE
   ops/        — CUDA kernels (csrc/), their build, plain versions, wrappers
+                and the torch.ops.lfvdm operators
   diffusion/  — schedules, Gaussian diffusion (ancestral, DDIM, training
                 losses), DPM-Solver++, timestep samplers, the codecs of
                 the diffusion spaces and the wavelet transform
@@ -21,10 +22,14 @@ Package layout:
                 pre-encoded latents), the prefetching loader, the binding
                 of the native loader
   native/     — the native C++ video loader's source (built with g++)
-  scripts/    — the entry points: video_sample, video_train
-  utils/      — reference .pt loading, JAX-tree -> state_dict / train-state
-                / VAE conversion, device selection, the metrics logger,
-                results paths, RNG scoping, video files, a file lock
+  serving.py  — the window sampler exported with torch.export, served from
+                an artifact and a params .npz without the model code
+  scripts/    — the entry points: video_sample, video_train, the evals',
+                export_sampler, export_params
+  utils/      — reference .pt loading, JAX-tree <-> state_dict / train-state
+                / VAE conversion, flax's msgpack files, device selection,
+                the metrics logger, results paths, RNG scoping, video
+                files, a file lock
 """
 
 __version__ = "0.1.0"

@@ -183,6 +183,13 @@ class GaussianDiffusion:
         vals = table[t]
         return vals.reshape(vals.shape + (1,) * (ndim - 1))
 
+    def tables_on(self, device) -> None:
+        """Put every table on ``device`` now (``_extract``'s cache), so that a
+        tracer such as ``torch.export`` reads them as real constants."""
+        t = torch.zeros((1,), dtype=torch.int64, device=device)
+        for name in [*self._tables, *(["timestep_map"] if self.timestep_map is not None else [])]:
+            self._extract(name, t, 1)
+
     # ---- timestep handling ----
 
     def _model_t(self, t: torch.Tensor) -> torch.Tensor:

@@ -25,13 +25,17 @@
   shared memory (``temporal_max_frames()``, 1752 on the H100). The bound is
   bytes (T is far too short to keep any matrix unit busy).
 
-Each wrapper takes the plain version for CPU tensors and launches its kernel
-for CUDA tensors (any other device raises); ``impl="plain"`` asks for the
-plain version on any device, for comparisons. ``<wrapper>.launches`` counts
-kernel launches (``spatial_attention.launches_by_route`` splits its count by
-route, as ``skip_conv_stats.launches_by_route`` does). The kernels have no backward: an ``autograd.Function``
-replays the plain version under autograd, as the JAX package's
-``custom_vjp``s differentiate their einsum oracles.
+Each kernel is an operator, ``torch.ops.lfvdm.spatial_attention`` and
+``torch.ops.lfvdm.temporal_rpe_attention`` (``_common.define``): its CPU
+implementation is the plain version, its CUDA one the kernel's launch (any
+other device raises), its fake one gives the output's shape and dtype to
+tracers, and its autograd formula replays the plain version, as the JAX
+package's ``custom_vjp``s differentiate their einsum oracles (the kernels
+have no backward). The wrappers call the operators; ``impl="plain"`` asks
+for the plain version on any device, for comparisons. ``<wrapper>.launches``
+counts kernel launches, in the CUDA implementation
+(``spatial_attention.launches_by_route`` splits its count by route, as
+``skip_conv_stats.launches_by_route`` does).
 
 Layouts are the JAX kernels' (q pre-scaled by F**-0.5):
   spatial:  q, k, v, out   (B, T, H, D, F)
@@ -48,7 +52,8 @@ import ctypes
 import torch
 
 from . import _build
-from ._common import _DTYPE_CODES, _check_impl, _check_launch, _use_kernel
+from ._common import (_DTYPE_CODES, _check_device, _check_impl, _check_launch, _replay_plain,
+                      define)
 from .skipconv import skip_conv_stats
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -118,17 +123,17 @@ def _spatial_launch(q, k, v):
     return out
 
 
-class _SpatialAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        if _use_kernel(q.device):
-            return _spatial_launch(q, k, v)
-        return spatial_attention_plain(q, k, v)
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
 
-    @staticmethod
-    def backward(ctx, g):
-        return _replay_plain(spatial_attention_plain, ctx.saved_tensors, g)
+
+_spatial_op = define(
+    "spatial_attention", "(Tensor q, Tensor k, Tensor v) -> Tensor",
+    cpu=lambda q, k, v: spatial_attention_plain(q, k, v).contiguous(),
+    cuda=_spatial_launch,
+    fake=lambda q, k, v: q.new_empty(q.shape),
+    backward=lambda ctx, g: _replay_plain(spatial_attention_plain, ctx.saved_tensors, g),
+    setup_context=_save_inputs)
 
 
 def spatial_attention(q, k, v, *, impl: str = "auto"):
@@ -136,7 +141,8 @@ def spatial_attention(q, k, v, *, impl: str = "auto"):
     _check_impl(impl)
     if impl == "plain":
         return spatial_attention_plain(q, k, v)
-    return _SpatialAttention.apply(q, k, v)
+    _check_device(q.device)
+    return _spatial_op(q, k, v)
 
 
 spatial_attention.launches = 0
@@ -200,20 +206,21 @@ def _temporal_launch(q, k, v, r_k, r_q_t, r_v_t, mask):
     return out
 
 
-class _TemporalRPEAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, r_k, r_q_t, r_v_t, mask):
-        ctx.save_for_backward(q, k, v, r_k, r_q_t, r_v_t, mask)
-        if _use_kernel(q.device):
-            return _temporal_launch(q, k, v, r_k, r_q_t, r_v_t, mask)
-        return temporal_rpe_attention_plain(q, k, v, r_k, r_q_t, r_v_t, mask)
+def _temporal_backward(ctx, g):
+    *diff, mask = ctx.saved_tensors
+    grads = _replay_plain(lambda *a: temporal_rpe_attention_plain(*a, mask), diff, g)
+    return (*grads, None)
 
-    @staticmethod
-    def backward(ctx, g):
-        *diff, mask = ctx.saved_tensors
-        grads = _replay_plain(
-            lambda *a: temporal_rpe_attention_plain(*a, mask), diff, g)
-        return (*grads, None)
+
+_temporal_op = define(
+    "temporal_rpe_attention",
+    "(Tensor q, Tensor k, Tensor v, Tensor r_k, Tensor r_q_t, Tensor r_v_t, Tensor mask)"
+    " -> Tensor",
+    cpu=lambda *a: temporal_rpe_attention_plain(*a).contiguous(),
+    cuda=_temporal_launch,
+    fake=lambda q, *_: q.new_empty(q.shape),
+    backward=_temporal_backward,
+    setup_context=_save_inputs)
 
 
 def temporal_rpe_attention(q, k, v, r_k, r_q_t, r_v_t, mask, *, impl: str = "auto"):
@@ -222,18 +229,11 @@ def temporal_rpe_attention(q, k, v, r_k, r_q_t, r_v_t, mask, *, impl: str = "aut
     _check_impl(impl)
     if impl == "plain":
         return temporal_rpe_attention_plain(q, k, v, r_k, r_q_t, r_v_t, mask)
-    return _TemporalRPEAttention.apply(q, k, v, r_k, r_q_t, r_v_t, mask)
+    _check_device(q.device)
+    return _temporal_op(q, k, v, r_k, r_q_t, r_v_t, mask)
 
 
 temporal_rpe_attention.launches = 0
-
-
-def _replay_plain(plain, saved, g):
-    """Gradients of ``plain`` at ``saved`` against cotangent ``g``."""
-    with torch.enable_grad():
-        inputs = [t.detach().requires_grad_() for t in saved]
-        out = plain(*inputs)
-    return torch.autograd.grad(out, inputs, g.to(out.dtype))
 
 
 def reset_launch_counts():

@@ -29,12 +29,15 @@ Layouts are the port's NCHW (the JAX op flattens channels-last rows; its
   w  (F, c1 + c2) or the conv's (F, c1 + c2, 1, 1), b (F,), in that dtype
   -> y (N, F, *S) in resid's dtype, s1 and s2 (N, F) f32
 
-The wrapper takes the plain version for CPU tensors and launches the kernel
-for CUDA tensors (any other device raises); ``impl="plain"`` asks for the
-plain version on any device. ``skip_conv_stats.launches`` counts kernel
-launches, ``skip_conv_stats.launches_by_route`` splits them by route. The
-backward is the JAX package's VJP (``skipconv.py`` ``_vjp_bwd``) in plain
-PyTorch, as JAX computes it outside any kernel.
+The kernel is the operator ``torch.ops.lfvdm.skip_conv_stats``
+(``_common.define``): the plain version for CPU tensors, the kernel's launch
+for CUDA tensors (any other device raises), a fake implementation giving the
+three outputs' shapes and dtypes to tracers, and an autograd formula that is
+the JAX package's VJP (``skipconv.py`` ``_vjp_bwd``) in plain PyTorch, as JAX
+computes it outside any kernel. The wrapper calls the operator;
+``impl="plain"`` asks for the plain version on any device.
+``skip_conv_stats.launches`` counts kernel launches, in the CUDA
+implementation; ``skip_conv_stats.launches_by_route`` splits them by route.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from ._common import _DTYPE_CODES, _check_impl, _check_launch, _use_kernel
+from ._common import _DTYPE_CODES, _check_device, _check_impl, _check_launch, define
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -202,35 +205,46 @@ def _check_kernel_inputs(x1, x2, w, b, resid):
         raise ValueError(f"the kernel takes at most 65535 samples, got {n}")
 
 
-class _SkipConvStats(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x1, x2, w, b, resid):
-        if _use_kernel(x1.device):
-            y, s1, s2 = _launch(x1, x2, w, b, resid)
-        else:
-            y, s1, s2 = skip_conv_stats_plain(x1, x2, w, b, resid)
-        # The backward reads the ROUNDED output, as JAX saves out[0].
-        ctx.save_for_backward(x1, x2, w, y)
-        ctx.dtypes = (b.dtype, resid.dtype)
-        return y, s1, s2
+def _skip_plain_contiguous(x1, x2, w, b, resid):
+    return tuple(t.contiguous() for t in skip_conv_stats_plain(x1, x2, w, b, resid))
 
-    @staticmethod
-    def backward(ctx, gy, gs1, gs2):
-        x1, x2, w, y = ctx.saved_tensors
-        b_dtype, r_dtype = ctx.dtypes
-        x1f, x2f, w2, yf = _flat(x1, x2, w, y)
-        c1 = x1f.shape[1]
-        # Stats cotangents broadcast over the pixels: dΣy/dy = 1, dΣy²/dy = 2y.
-        g = (gy.reshape(yf.shape).float() + gs1[:, :, None]
-             + 2.0 * yf.float() * gs2[:, :, None])
-        g_c = g.to(x1.dtype)
-        dx1 = torch.matmul(w2[:, :c1].t(), g_c).reshape(x1.shape)
-        dx2 = torch.matmul(w2[:, c1:].t(), g_c).reshape(x2.shape)
-        dw = torch.cat([torch.einsum("nfp,nkp->fk", g, x1f.float()),
-                        torch.einsum("nfp,nkp->fk", g, x2f.float())], dim=1)
-        db = g.sum(dim=(0, 2)).to(b_dtype)
-        dresid = g.to(r_dtype).reshape(y.shape)
-        return dx1, dx2, dw.to(w.dtype).reshape(w.shape), db, dresid
+
+def _skip_fake(x1, x2, w, b, resid):
+    n, F = resid.shape[:2]
+    s1 = resid.new_empty((n, F), dtype=torch.float32)
+    return resid.new_empty(resid.shape), s1, s1.new_empty((n, F))
+
+
+def _skip_setup_context(ctx, inputs, output):
+    x1, x2, w, b, resid = inputs
+    # The backward reads the ROUNDED output, as JAX saves out[0].
+    ctx.save_for_backward(x1, x2, w, output[0])
+    ctx.dtypes = (b.dtype, resid.dtype)
+
+
+def _skip_backward(ctx, gy, gs1, gs2):
+    x1, x2, w, y = ctx.saved_tensors
+    b_dtype, r_dtype = ctx.dtypes
+    x1f, x2f, w2, yf = _flat(x1, x2, w, y)
+    c1 = x1f.shape[1]
+    # Stats cotangents broadcast over the pixels: dΣy/dy = 1, dΣy²/dy = 2y.
+    g = (gy.reshape(yf.shape).float() + gs1[:, :, None]
+         + 2.0 * yf.float() * gs2[:, :, None])
+    g_c = g.to(x1.dtype)
+    dx1 = torch.matmul(w2[:, :c1].t(), g_c).reshape(x1.shape)
+    dx2 = torch.matmul(w2[:, c1:].t(), g_c).reshape(x2.shape)
+    dw = torch.cat([torch.einsum("nfp,nkp->fk", g, x1f.float()),
+                    torch.einsum("nfp,nkp->fk", g, x2f.float())], dim=1)
+    db = g.sum(dim=(0, 2)).to(b_dtype)
+    dresid = g.to(r_dtype).reshape(y.shape)
+    return dx1, dx2, dw.to(w.dtype).reshape(w.shape), db, dresid
+
+
+_skip_op = define(
+    "skip_conv_stats",
+    "(Tensor x1, Tensor x2, Tensor w, Tensor b, Tensor resid) -> (Tensor, Tensor, Tensor)",
+    cpu=_skip_plain_contiguous, cuda=_launch, fake=_skip_fake, backward=_skip_backward,
+    setup_context=_skip_setup_context)
 
 
 def skip_conv_stats(x1, x2, w, b, resid, *, impl: str = "auto"):
@@ -240,7 +254,8 @@ def skip_conv_stats(x1, x2, w, b, resid, *, impl: str = "auto"):
     _check_impl(impl)
     if impl == "plain":
         return skip_conv_stats_plain(x1, x2, w, b, resid)
-    return _SkipConvStats.apply(x1, x2, w, b, resid)
+    _check_device(x1.device)
+    return _skip_op(x1, x2, w, b, resid)
 
 
 skip_conv_stats.launches = 0

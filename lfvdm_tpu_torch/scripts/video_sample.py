@@ -4,8 +4,9 @@
     python -m lfvdm_tpu_torch.scripts.video_sample CHECKPOINT --sampling_scheme hierarchy-2 \\
         --dataset carla_no_traffic --T 300 --use_ddim True --timestep_respacing ddim50
 
-CHECKPOINT is a reference-format ``.pt`` file (``{"state_dict", "config"}``)
-or a training run directory of the port's ``video_train``. The config comes
+CHECKPOINT is a reference-format ``.pt`` file (``{"state_dict", "config"}``),
+a training run directory of the port's ``video_train``, or a params
+``.msgpack`` that either package's ``export_params`` wrote. The config comes
 from the checkpoint; each video of the test split, from ``--start_index`` to
 ``--stop_index``, is sampled given its first ``--n_obs`` frames and written as
 ``results/.../samples/sample_XXXX-<sample_idx>.npy`` (uint8 (T, C, H, W)),
@@ -38,8 +39,9 @@ from ..utils.paths import get_eval_run_identifier, get_model_results_path
 
 def load_model_from_checkpoint(path: str, use_ddim: bool, timestep_respacing: str,
                                ema_rate: str = None, device="cuda"):
-    """(model on ``device``, diffusion, config) from a reference ``.pt`` file
-    or a port training run directory, the diffusion respaced as asked.
+    """(model on ``device``, diffusion, config) from a reference ``.pt`` file,
+    a port training run directory or an exported params ``.msgpack``, the
+    diffusion respaced as asked.
 
     ``ema_rate``: which weight copy a run directory yields — None picks the
     largest saved EMA rate (the reference's eval default), a rate string
@@ -52,14 +54,14 @@ def load_model_from_checkpoint(path: str, use_ddim: bool, timestep_respacing: st
 
         model, _, config = load_reference_checkpoint(path, device=device)
     elif path.endswith(".msgpack"):
-        raise SystemExit("an exported .msgpack holds flax parameters, which the port cannot "
-                         "read without JAX; exporting to the port waits for ROADMAP A8")
+        model, config = load_exported_params(path, device)
     elif os.path.isdir(path) and ckpt_lib.find_latest_step(path) is not None:
         step = ckpt_lib.find_latest_step(path)
         if not os.path.exists(os.path.join(path, str(step), "params.pt")):
             raise SystemExit(f"{path} is not a run directory of the port's video_train (a JAX "
                              "orbax run?); the port cannot read orbax checkpoints without "
-                             "JAX, which waits for ROADMAP A8")
+                             "JAX (ROADMAP A8): export the run with the JAX package's "
+                             "scripts/export_params.py and pass the .msgpack it writes")
         params, rate, step, config = ckpt_lib.load_ema_params(path, rate=ema_rate)
         model, _ = create_model_and_diffusion(config, device=device)
         model.load_state_dict(params, strict=True)
@@ -71,6 +73,25 @@ def load_model_from_checkpoint(path: str, use_ddim: bool, timestep_respacing: st
     config = dict(config)
     config.update({"use_ddim": use_ddim, "timestep_respacing": timestep_respacing})
     return model, create_diffusion(config), config
+
+
+def load_exported_params(path: str, device):
+    """(model on ``device``, config) from a params ``.msgpack`` that
+    ``scripts/export_params.py`` (either package's) wrote, with the
+    ``config.json`` beside it: flax's msgpack, then the JAX tree, then the
+    port's state dict."""
+    from ..utils.convert import unet_state_dict_from_jax
+    from ..utils.msgpack import from_bytes
+
+    with open(path, "rb") as f:
+        tree = from_bytes(f.read())
+    with open(os.path.join(os.path.dirname(path), "config.json")) as f:
+        config = json.load(f)
+    model, _ = create_model_and_diffusion(config, device=device)
+    model.load_state_dict(unet_state_dict_from_jax(
+        tree, num_res_blocks=model.num_res_blocks, channel_mult=model.channel_mult,
+        attention_resolutions=model.attention_resolutions), strict=True)
+    return model, config
 
 
 def visualise(args, indices_used):

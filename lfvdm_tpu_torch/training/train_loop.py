@@ -2,8 +2,8 @@
 lfvdm_tpu/training/train_loop.py), on one card.
 
 The step is the JAX package's, run eagerly: q_sample, the U-Net forward and
-backward (its kernels launch in the forward; each backward is an
-``autograd.Function`` in plain PyTorch), the weighted loss, AdamW with the
+backward (its kernels launch in the forward; each kernel operator's
+backward is plain PyTorch), the weighted loss, AdamW with the
 optional linear LR anneal, the multi-rate f32 EMA and the non-finite skip.
 The JAX step selects the old state on device when the gradient norm is not
 finite; here the norm is read on the host (one sync per step) and a skipped

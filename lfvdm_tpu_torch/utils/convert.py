@@ -9,7 +9,9 @@ loads as it is.
 The inverse of ``lfvdm_tpu/utils/torch_convert.py``: it maps the Flax
 parameter tree of ``lfvdm_tpu.models.unet.UNetVideoModel`` onto the module
 names of ``lfvdm_tpu_torch.models.unet.UNetVideoModel`` (the reference
-checkpoint's names), so a JAX checkpoint loads with ``load_state_dict``.
+checkpoint's names), so a JAX checkpoint loads with ``load_state_dict``;
+``unet_jax_tree_from_state_dict`` maps back (what the port's
+``export_params`` writes, for the JAX package to read).
 ``train_state_from_jax`` maps a whole JAX train state (params, EMA copies,
 optax Adam state, step) onto the port's ``TrainState.state_dict()`` format.
 ``vae_state_dict_from_jax`` maps the JAX SVD VAE's encoder and decoder
@@ -143,6 +145,102 @@ def unet_state_dict_from_jax(params: Mapping, *, num_res_blocks: int, channel_mu
     _gn(sd, "out.0", p["out_norm"])
     _conv(sd, "out.2", p["out_conv"])
     return sd
+
+
+# The inverse: the port's state_dict -> the JAX parameter tree (the port's own
+# copy of lfvdm_tpu/utils/torch_convert.py's convert_unet_state_dict).
+
+
+def _np(sd, key) -> np.ndarray:
+    return np.asarray(sd[key].detach().cpu().float().numpy() if torch.is_tensor(sd[key])
+                      else sd[key], dtype=np.float32)
+
+
+def _jlin(sd, prefix):
+    return {"kernel": np.ascontiguousarray(_np(sd, f"{prefix}.weight").T),
+            "bias": _np(sd, f"{prefix}.bias")}
+
+
+def _jconv(sd, prefix):
+    return {"kernel": np.ascontiguousarray(_np(sd, f"{prefix}.weight").transpose(2, 3, 1, 0)),
+            "bias": _np(sd, f"{prefix}.bias")}
+
+
+def _jgn(sd, prefix):
+    return {"scale": _np(sd, f"{prefix}.weight"), "bias": _np(sd, f"{prefix}.bias")}
+
+
+def _jresblock(sd, prefix):
+    out = {"in_norm": _jgn(sd, f"{prefix}.in_layers.0"),
+           "in_conv": _jconv(sd, f"{prefix}.in_layers.2"),
+           "emb_proj": _jlin(sd, f"{prefix}.emb_layers.1"),
+           "out_norm": _jgn(sd, f"{prefix}.out_layers.0"),
+           "out_conv": _jconv(sd, f"{prefix}.out_layers.3")}
+    if f"{prefix}.skip_connection.weight" in sd:
+        out["skip_conv"] = _jconv(sd, f"{prefix}.skip_connection")
+    return out
+
+
+def _jrpe(sd, prefix):
+    if f"{prefix}.rpe_net.embed_distances.weight" in sd:
+        return {"rpe_net": {name: _jlin(sd, f"{prefix}.rpe_net.{name}")
+                            for name in ("embed_distances", "embed_diffusion_time", "out")}}
+    return {"lookup_table_weight": _np(sd, f"{prefix}.lookup_table_weight")}
+
+
+def _jrpe_attention(sd, prefix):
+    out = {"norm": _jgn(sd, f"{prefix}.norm"), "qkv": _jlin(sd, f"{prefix}.qkv"),
+           "proj_out": _jlin(sd, f"{prefix}.proj_out")}
+    for which in ("rpe_q", "rpe_k", "rpe_v"):
+        if any(k.startswith(f"{prefix}.{which}.") for k in sd):
+            out[which] = _jrpe(sd, f"{prefix}.{which}")
+    return out
+
+
+def _jattn_block(sd, prefix):
+    return {"temporal_attention": _jrpe_attention(sd, f"{prefix}.temporal_attention"),
+            "spatial_attention": _jrpe_attention(sd, f"{prefix}.spatial_attention")}
+
+
+def unet_jax_tree_from_state_dict(state_dict: Mapping, *, num_res_blocks: int, channel_mult,
+                                  attention_resolutions) -> dict:
+    """The port's U-Net ``state_dict`` (tensors or numpy) -> the JAX
+    ``UNetVideoModel`` tree ``{"params": ...}`` with f32 numpy leaves: the
+    exact inverse of ``unet_state_dict_from_jax``. ``attention_resolutions``
+    are downsample factors (ds values), as the model's field holds them."""
+    sd = dict(state_dict)
+    p = {"time_embed_1": _jlin(sd, "time_embed.0"), "time_embed_2": _jlin(sd, "time_embed.2"),
+         "stem": _jconv(sd, "input_blocks.0.0")}
+    idx, ds = 1, 1
+    for level in range(len(channel_mult)):
+        for i in range(num_res_blocks):
+            p[f"down_{level}_{i}"] = _jresblock(sd, f"input_blocks.{idx}.0")
+            if ds in attention_resolutions:
+                p[f"down_attn_{level}_{i}"] = _jattn_block(sd, f"input_blocks.{idx}.1")
+            idx += 1
+        if level != len(channel_mult) - 1:
+            p[f"downsample_{level}"] = {"conv": _jconv(sd, f"input_blocks.{idx}.0.op")}
+            idx += 1
+            ds *= 2
+    p["middle_res_1"] = _jresblock(sd, "middle_block.0")
+    p["middle_attn"] = _jattn_block(sd, "middle_block.1")
+    p["middle_res_2"] = _jresblock(sd, "middle_block.2")
+    jdx = 0
+    for level in reversed(range(len(channel_mult))):
+        for i in range(num_res_blocks + 1):
+            prefix = f"output_blocks.{jdx}"
+            p[f"up_{level}_{i}"] = _jresblock(sd, f"{prefix}.0")
+            sub = 1
+            if ds in attention_resolutions:
+                p[f"up_attn_{level}_{i}"] = _jattn_block(sd, f"{prefix}.{sub}")
+                sub += 1
+            if level and i == num_res_blocks:
+                p[f"upsample_{level}"] = {"conv": _jconv(sd, f"{prefix}.{sub}.conv")}
+                ds //= 2
+            jdx += 1
+    p["out_norm"] = _jgn(sd, "out.0")
+    p["out_conv"] = _jconv(sd, "out.2")
+    return {"params": p}
 
 
 def _has_field(obj, name: str) -> bool:

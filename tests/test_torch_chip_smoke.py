@@ -322,3 +322,59 @@ def test_reuse_counts_are_the_flagship_structure():
     chip_smoke._check_launches(counts, good, 1, counts)
     with pytest.raises(RuntimeError, match="launch counts"):  # 50 full calls' counts
         chip_smoke._check_launches(counts, good, 50)
+
+
+# ---- the serve phase's pieces ----
+
+
+def test_serve_paths_in_the_kernels_line():
+    """Phase 5c's paths: the DDIM artifact's 25 steps and the ancestral one's
+    50 each launch 7 + 7 + 10 kernels per step on "mma"/"bulk", and both
+    paths appear in the kernels line by count and by route."""
+    per_path = {}
+    for path, steps in (("serve", 25), ("serve_ancestral", 50)):
+        counts = {n: k * steps for n, k in chip_smoke.PER_FORWARD.items()}
+        routes = {"spatial_attention": {"mma": 7 * steps, "fma": 0},
+                  "skip_conv_stats": {"generic": 0, "bulk": 10 * steps}}
+        chip_smoke._check_launches(counts, routes, steps)
+        with pytest.raises(RuntimeError, match="launch counts"):
+            chip_smoke._check_launches(counts, routes, steps - 1)
+        per_path[path] = (counts, routes)
+    wrong_route = {"spatial_attention": {"mma": 7 * 24, "fma": 7},
+                   "skip_conv_stats": {"generic": 0, "bulk": 250}}
+    with pytest.raises(RuntimeError, match="by route"):
+        chip_smoke._check_launches(per_path["serve"][0], wrong_route, 25)
+    results = {}
+    for ds in chip_smoke.ATTN_SHAPES:
+        for name in ("temporal_rpe_attention", "spatial_attention"):
+            results[(name, ds, "bfloat16")] = _row(name, ds, library="x")
+    for ds in chip_smoke.LATENT_ATTN_SHAPES:
+        for name in ("temporal_rpe_attention", "spatial_attention"):
+            results[("latent", name, ds, "bfloat16")] = _row(name, ds)
+    for shp in chip_smoke.SKIP_SHAPES:
+        results[("skip_conv_stats",) + shp + ("bfloat16",)] = _row("skip_conv_stats", shp[0])
+    for shp in chip_smoke.LATENT_SKIP_SHAPES:
+        results[("latent", "skip_conv_stats") + shp + ("bfloat16",)] = _row("skip_conv_stats",
+                                                                            shp[0])
+    paths = {"train": per_path["serve"], **per_path}
+    line = chip_smoke.kernels_line(results, {p: c for p, (c, _) in paths.items()},
+                                   {p: r for p, (_, r) in paths.items()})
+    for e in line["kernels"]:
+        assert CONTRACT_KEYS <= set(e)
+        assert e["launches_by_path"]["serve"] == 25 * chip_smoke.PER_FORWARD[e["name"]]
+        assert e["launches_by_path"]["serve_ancestral"] == 50 * chip_smoke.PER_FORWARD[e["name"]]
+        if e["name"] in chip_smoke.ROUTED:
+            assert e["launches_by_route"]["serve"] == per_path["serve"][1][e["name"]]
+
+
+def test_serving_process_blocks_the_model_code():
+    """The serving subprocess's code compiles, and its import blocker covers
+    the model, config, diffusion and sampling modules and the JAX side."""
+    import ast
+
+    code = chip_smoke.SERVE_CHILD.format(blocked=chip_smoke.SERVE_BLOCKED, timed=2)
+    ast.parse(code)
+    for name in ("lfvdm_tpu_torch.models", "lfvdm_tpu_torch.config", "lfvdm_tpu_torch.sampling",
+                 "lfvdm_tpu_torch.diffusion", "jax", "lfvdm_tpu"):
+        assert name in chip_smoke.SERVE_BLOCKED
+    assert "lfvdm_tpu_torch.ops" not in code.split("BLOCKED =")[1].split("\n")[0]

@@ -1,8 +1,11 @@
 """The port's CLIs accept every flag of the repo's JAX scripts, with the
 same default, and add only ``--device``; their ``--help`` runs in a fresh
 interpreter where JAX, flax, orbax and the JAX package cannot be imported.
-The JAX ``video_optimal_schedule.py`` and ``carla_regressor_train.py`` build
-their parsers inside ``main()``: those are caught at ``parse_args``.
+The JAX ``video_optimal_schedule.py``, ``carla_regressor_train.py`` and the
+two export scripts build their parsers inside ``main()``: those are caught
+at ``parse_args``. ``export_sampler``'s ``--device`` takes the place of the
+JAX script's ``--platform``; ``export_params`` selects no device and adds
+nothing.
 """
 
 import argparse
@@ -15,6 +18,8 @@ import pytest
 
 from lfvdm_tpu_torch.scripts import (
     carla_regressor_train,
+    export_params,
+    export_sampler,
     video_fvd,
     video_make_mp4,
     video_optimal_schedule,
@@ -27,7 +32,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = {"video_sample": video_sample, "video_train": video_train,
         "video_optimal_schedule": video_optimal_schedule, "video_fvd": video_fvd,
         "video_to_world_coords": video_to_world_coords, "video_make_mp4": video_make_mp4,
-        "carla_regressor_train": carla_regressor_train}
+        "carla_regressor_train": carla_regressor_train, "export_sampler": export_sampler,
+        "export_params": export_params}
+# Flags of a JAX script that the port's names otherwise, and flags the port adds.
+RENAMED = {"export_sampler": {"--platform": "--device"}}
+ADDED = {"export_sampler": set(), "export_params": set()}
 
 
 class _Parsed(Exception):
@@ -71,10 +80,13 @@ def _options(parser):
 def test_every_jax_flag_with_its_default(name):
     jflags, jpos = _options(_jax_parser(name))
     tflags, tpos = _options(PORT[name].create_argparser())
+    renamed = RENAMED.get(name, {})
     assert tpos == jpos
-    assert set(tflags) - set(jflags) == {"--device"}
-    assert not set(jflags) - set(tflags)
+    assert set(tflags) - set(jflags) == ADDED.get(name, {"--device"}) | set(renamed.values())
+    assert not set(jflags) - set(tflags) - set(renamed)
     for opt, ja in jflags.items():
+        if opt in renamed:
+            continue
         ta = tflags[opt]
         assert ta.default == ja.default, opt
         assert ta.required == ja.required, opt
@@ -82,7 +94,8 @@ def test_every_jax_flag_with_its_default(name):
             (sorted(ja.choices) if ja.choices else None), opt
         assert getattr(ta.type, "__name__", None) == getattr(ja.type, "__name__", None), opt
         assert ta.nargs == ja.nargs and ta.const == ja.const, opt
-    assert tflags["--device"].default == "cuda"
+    if "--device" in tflags:
+        assert tflags["--device"].default == "cuda"
 
 
 @pytest.mark.parametrize("name", list(PORT))
@@ -104,10 +117,18 @@ def test_same_values_parsed(name):
             "video_make_mp4": ["--eval_dir", "ev", "--add_gt", "no", "--do_n", "3",
                                "--n_seeds", "2", "--obs_length", "36", "--format", "mp4"],
             "carla_regressor_train": ["--data_dir", "d", "--is_classifier", "True",
-                                      "--lr", "0.01", "--num_epochs", "3"]}[name]
+                                      "--lr", "0.01", "--num_epochs", "3"],
+            "export_sampler": ["--random_init", "True", "--out", "o", "--batch_size", "2",
+                               "--use_ddim", "yes", "--eta", "0.5", "--image_size", "32",
+                               "--timestep_respacing", "ddim25", "--ema_rate", "raw"],
+            "export_params": ["run", "--step", "3", "--ema_rate", "raw"]}[name]
     want = vars(_jax_parser(name).parse_args(argv))
     got = vars(PORT[name].create_argparser().parse_args(argv))
-    assert got.pop("device") == "cuda"
+    for jax_dest, dest in RENAMED.get(name, {}).items():
+        want.pop(jax_dest.lstrip("-"))
+        assert got.pop(dest.lstrip("-")) == "cuda"
+    if name not in ADDED:
+        assert got.pop("device") == "cuda"
     assert got == want
 
 
@@ -132,4 +153,5 @@ def test_help_runs_with_jax_blocked(name):
     run = subprocess.run([sys.executable, "-c", HELP.format(name=name)], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
-    assert "--device" in run.stdout and "usage:" in run.stdout
+    assert "usage:" in run.stdout
+    assert ("--device" in run.stdout) == (name != "export_params")

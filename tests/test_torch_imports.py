@@ -3,11 +3,13 @@
 An AST scan of every module of ``lfvdm_tpu_torch`` and of ``chip_smoke.py``
 (which runs on a machine without JAX) for ``import`` statements naming
 ``jax``, ``flax``, ``optax``, ``orbax``, ``lfvdm_tpu``, the repo's
-``scripts`` or ``diffusers`` (on neither machine); and the latent slice's
-modules, the entry points and their data, checkpoint and logging modules,
-the LPIPS embedder, the optimal-schedule script, and the evals (FVD, I3D, the
-CARLA regressor) with their four scripts imported in a fresh interpreter
-where those names cannot be found.
+``scripts``, ``diffusers`` (on neither machine) or ``msgpack`` (not on the
+card's machine: the port reads and writes flax's files itself); and the
+latent slice's modules, the entry points and their data, checkpoint and
+logging modules, the LPIPS embedder, the optimal-schedule script, the evals
+(FVD, I3D, the CARLA regressor) with their four scripts, and the serving
+module, the msgpack reader and writer and the two export scripts imported in
+a fresh interpreter where those names cannot be found.
 """
 
 import ast
@@ -18,7 +20,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "lfvdm_tpu", "scripts", "diffusers")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "lfvdm_tpu", "scripts", "diffusers", "msgpack")
 FILES = sorted((ROOT / "lfvdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -56,7 +58,10 @@ def test_scan_covers_the_package():
                      "lfvdm_tpu_torch/scripts/video_fvd.py",
                      "lfvdm_tpu_torch/scripts/video_to_world_coords.py",
                      "lfvdm_tpu_torch/scripts/video_make_mp4.py",
-                     "lfvdm_tpu_torch/scripts/carla_regressor_train.py", "chip_smoke.py"):
+                     "lfvdm_tpu_torch/scripts/carla_regressor_train.py",
+                     "lfvdm_tpu_torch/serving.py", "lfvdm_tpu_torch/utils/msgpack.py",
+                     "lfvdm_tpu_torch/scripts/export_sampler.py",
+                     "lfvdm_tpu_torch/scripts/export_params.py", "chip_smoke.py"):
         assert expected in names
 
 
@@ -70,6 +75,7 @@ def test_forbidden_matches_only_the_jax_side():
     assert _forbidden("jax.numpy") and _forbidden("flax.linen") and _forbidden("lfvdm_tpu.ops")
     assert _forbidden("optax") and _forbidden("orbax.checkpoint")
     assert _forbidden("scripts.convert_svd_vae") and _forbidden("diffusers")
+    assert _forbidden("msgpack") and not _forbidden("lfvdm_tpu_torch.utils.msgpack")
     assert not _forbidden("lfvdm_tpu_torch.ops") and not _forbidden("torch")
 
 
@@ -95,6 +101,8 @@ import lfvdm_tpu_torch.evals.lpips, lfvdm_tpu_torch.scripts.video_optimal_schedu
 import lfvdm_tpu_torch.evals.fvd, lfvdm_tpu_torch.evals.i3d, lfvdm_tpu_torch.evals.carla_regressor
 import lfvdm_tpu_torch.scripts.video_fvd, lfvdm_tpu_torch.scripts.video_to_world_coords
 import lfvdm_tpu_torch.scripts.video_make_mp4, lfvdm_tpu_torch.scripts.carla_regressor_train
+import lfvdm_tpu_torch.serving, lfvdm_tpu_torch.utils.msgpack
+import lfvdm_tpu_torch.scripts.export_sampler, lfvdm_tpu_torch.scripts.export_params
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")

@@ -8,7 +8,10 @@ machine). On a machine with a card, and without JAX, run
 (``--noconftest``: the suite's conftest configures JAX). The flagship shapes
 are checked by ``chip_smoke.py``; these cover ragged tiles, short and long
 frame counts, odd widths, both routes of the spatial kernel, the launch
-counters, the input checks and the skip projection's backward.
+counters, the input checks and the skip projection's backward; and the
+kernels as ``torch.ops.lfvdm`` operators (``torch.library.opcheck`` on CUDA
+tensors, and a flagship window exported with ``torch.export`` that launches
+them).
 """
 
 import pytest
@@ -439,3 +442,57 @@ def test_unet_reuse_and_heatmap_calls_launch_their_kernels(cuda, dtype, limit):
         model(x, t, return_attn_weights=True, **kw)
         assert ops.launch_counts() == {"temporal_rpe_attention": 0, "spatial_attention": 0,
                                        "skip_conv_stats": skips}
+
+
+# ---- the kernels as operators, and the exported sampler ----
+
+
+def _op_inputs(name, gen, dtype):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype).requires_grad_()
+
+    if name == "spatial_attention":
+        return tuple(rnd(1, 3, 2, 65, 32) for _ in range(3))
+    if name == "temporal_rpe_attention":
+        *most, mask = _temporal(gen, 1, 2, 5, 16, 40, dtype, 2)
+        return tuple(t.requires_grad_() for t in most) + (mask,)
+    return (rnd(2, 32, 8, 8), rnd(2, 16, 8, 8), rnd(64, 48), rnd(64), rnd(2, 64, 8, 8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["spatial_attention", "temporal_rpe_attention",
+                                  "skip_conv_stats"])
+def test_operators_pass_opcheck_on_the_card(cuda, name, dtype):
+    """Schema, fake implementation, autograd registration and AOT dispatch of
+    each operator, its CUDA implementation launching the kernel."""
+    op = getattr(torch.ops.lfvdm, name).default
+    result = torch.library.opcheck(op, _op_inputs(name, cuda, dtype))
+    assert set(result.values()) == {"SUCCESS"}, result
+
+
+def test_exported_flagship_window_launches_the_kernels(cuda):
+    """The flagship model (128 px, bf16) exported at B=2, K=20 for a two-step
+    DDIM window: the served window launches 7 + 7 + 10 kernels per step on
+    "mma"/"bulk" and equals the live sampler's from the same seed."""
+    from chip_smoke import randomize_zero_modules, window_inputs
+    from lfvdm_tpu_torch import serving
+    from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
+
+    cfg = dict(flagship_config(), timestep_respacing="ddim2")
+    model, diffusion = create_model_and_diffusion(cfg, device="cuda", seed=0)
+    randomize_zero_modules(model, torch.Generator().manual_seed(1))
+    params = dict(model.state_dict())
+    blob = serving.export_window_sampler(model, diffusion, params, batch_size=2, max_frames=20,
+                                         in_channels=3, image_size=128, use_ddim=True)
+    run = serving.load_window_sampler(blob)
+    _, _, kw = window_inputs(cfg, "cuda", cuda)
+    window = [kw[k] for k in ("x0", "frame_indices", "obs_mask", "latent_mask")]
+    ops.reset_launch_counts()
+    got = run(params, *window, 5)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"temporal_rpe_attention": 14, "spatial_attention": 14,
+                                   "skip_conv_stats": 20}
+    assert ops.spatial_attention.launches_by_route["mma"] == 14
+    assert skipconv.skip_conv_stats.launches_by_route["bulk"] == 20
+    want = serving.make_window_sampler(model, diffusion, use_ddim=True)(params, *window, 5)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
