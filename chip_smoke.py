@@ -77,6 +77,27 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                group.
   7. parity  — one train step's loss and gradients on the kernel path against
                impl="plain", in bf16 and in f32 (TF32 off).
+  7b. parallel — data parallelism and remat (lfvdm_tpu_torch/parallel) on the
+               flagship config, on the one card:
+               a. remat  — one train step with use_checkpoint=True and one
+                           without (dropout 0.1, the same masks): loss and
+                           gradients within 5e-3 in bf16 and 1e-5 in f32;
+                           peak memory and ms per step both ways; 14 + 14 + 20
+                           launches per step with remat, 7 + 7 + 10 without;
+               b. group of one — a NCCL group of one rank: TrainLoop
+                           unwrapped, through DDP and through FSDP2 on a
+                           (1, 1) mesh, 2 steps each on the same batches:
+                           parameters and gradients within 5e-3 of the
+                           unwrapped loop's, ms per step; the FSDP2 run saved
+                           and resumed unwrapped, bitwise;
+               c. two ranks — two processes on the card in a gloo group, B=1
+                           each under DDP and under FSDP2 (fsdp 2), against
+                           one process's B=2 step on the same rows and noise
+                           (5e-3, each rank's shards where they lie);
+                           7 + 7 + 10 launches per rank;
+               d. sample — VideoSampler over two replicas on the card, a DDIM
+                           window (ddim25, B=2) against one device's (5e-3),
+                           both timed in turns.
   8. latent  — the latent path (config.latent_config(): 32x32 C4 SVD-VAE
                latents, 64 channels, B=1, K=5, bf16), whose kernel launches
                phase 3 already held against their plain versions at the latent
@@ -1697,6 +1718,439 @@ def _parity_once(compute_dtype, B):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7b: data parallelism and remat (lfvdm_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+PARALLEL_DROPOUT = 0.1  # so that the rematerialised blocks' masks matter
+PARALLEL_STEPS = 2  # timed steps per loop, after one warm-up step
+PARALLEL_LR = 1e-4
+BATCH_KEYS = ("x0", "frame_indices", "obs_mask", "latent_mask")
+# Launches per train step with use_checkpoint: each block's forward runs
+# again in the backward pass.
+REMAT_PER_STEP = {name: 2 * n for name, n in PER_FORWARD.items()}
+
+# One rank of phase 7b c: joins a gloo group of two on the one card, takes
+# one process's flagship step on both rows unwrapped (the reference, no
+# collective), then one step on its own row under DDP and under FSDP2, and
+# sums its parameters' and Adam first moments' squared distances to the
+# reference over what it holds: DDP's full replica on rank 0 alone, FSDP2's
+# shards on each rank where they lie (DTensor's full_tensor() over gloo on
+# CUDA tensors crashed the process in torch 2.11), its replicated
+# parameters on rank 0.
+TWO_RANK_CHILD = r"""
+import datetime, faulthandler, json, os, sys, time
+faulthandler.enable()
+job = json.loads(sys.argv[1])
+sys.path.insert(0, job["root"])
+import torch, torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
+rank = int(os.environ["RANK"])
+dist.init_process_group("gloo", init_method="tcp://localhost:%d" % job["port"], rank=rank,
+                        world_size=2, timeout=datetime.timedelta(seconds=300))
+from lfvdm_tpu_torch.config import create_diffusion, create_model_and_diffusion
+from lfvdm_tpu_torch.ops import attention as ops
+from lfvdm_tpu_torch.training.train_loop import (TrainLoop, init_train_state, make_optimizer,
+                                                 train_step)
+inputs = {k: v.cuda() for k, v in torch.load(job["inputs"]).items()}
+diffusion = create_diffusion(dict(job["cfg"], timestep_respacing=""))
+keys = ("x0", "frame_indices", "obs_mask", "latent_mask")
+
+def model():
+    m, _ = create_model_and_diffusion(job["cfg"], device="cuda")
+    m.load_state_dict(torch.load(job["params"]))
+    return m
+
+def step(state, rows):
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = train_step(state, {k: inputs[k][rows] for k in keys}, inputs["t"][rows],
+                   inputs["w"][rows], diffusion=diffusion, noise=inputs["noise"][rows])
+    torch.cuda.synchronize()
+    return {"ms": (time.perf_counter() - t0) * 1e3, "launches": ops.launch_counts(),
+            "routes": {n: dict(getattr(ops, n).launches_by_route)
+                       for n in ("spatial_attention", "skip_conv_stats")},
+            "skipped": m["skipped_nonfinite"].item(), "loss": m["loss"].tolist()}
+
+def squared_distances(state, want):
+    sums = {"params": [0.0, 0.0], "exp_avg": [0.0, 0.0]}
+    for name, p in state.named_params():
+        held = {"params": p.detach(), "exp_avg": state.optimizer.state[p]["exp_avg"]}
+        for key, got in held.items():
+            ref = want[key][name]
+            if isinstance(got, DTensor):
+                (dim,) = [pl.dim for pl in got.placements if isinstance(pl, Shard)]
+                mesh = got.device_mesh
+                ref = ref.chunk(mesh.size(1), dim)[mesh.get_local_rank(1)]
+                got = got.to_local()
+            elif rank != 0:
+                continue
+            sums[key][0] += (got.float() - ref.float()).square().sum().item()
+            sums[key][1] += ref.float().square().sum().item()
+    return sums
+
+m = model()
+opt, sched = make_optimizer(m.parameters(), job["lr"], 0.0)
+one = init_train_state(m, opt, sched, [0.9999])
+out = {"rank": rank, "one_process": step(one, slice(0, 2))}
+ref = one.state_dict()
+want = {"params": ref["params"], "exp_avg": ref["adam"]["exp_avg"]}
+del m, opt, one
+for kind, fsdp in (("ddp", 1), ("fsdp", 2)):
+    loop = TrainLoop(model=model(), diffusion=diffusion, data=iter(()), batch_size=1,
+                     max_frames=job["K"], lr=job["lr"], ema_rate="0.9999", fsdp=fsdp,
+                     checkpoint_dir=job["tmp"])
+    out[kind] = step(loop.state, slice(rank, rank + 1))
+    out[kind]["wrapper"] = type(loop.model).__name__
+    out[kind]["squared_distances"] = squared_distances(loop.state, want)
+    loop = None
+    torch.cuda.empty_cache()
+    dist.barrier()
+print("RESULT " + json.dumps(out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _flagship_step_inputs(cfg, B, seed, device="cuda"):
+    """One train step's batch (B rows of seeded 128 px frames, masks drawn as
+    training draws them), timesteps, weights and noise, on ``device``."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.training.masks import sample_training_batch
+
+    rng = np.random.default_rng(seed)
+    C, S = cfg["in_channels"], cfg["image_size"]
+    video = rng.uniform(-1, 1, (B, 60, C, S, S)).astype(np.float32)
+    x0, fi, obs, lat = sample_training_batch(rng, video, FLAGSHIP_K, batch2=video[::-1])
+    t = rng.integers(0, cfg["diffusion_steps"], B)
+    noise = rng.standard_normal(x0.shape).astype(np.float32)
+    return {"x0": torch.tensor(x0, device=device),
+            "frame_indices": torch.tensor(fi, dtype=torch.int64, device=device),
+            "obs_mask": torch.tensor(obs, device=device),
+            "latent_mask": torch.tensor(lat, device=device),
+            "t": torch.tensor(t, device=device), "w": torch.ones(B, device=device),
+            "noise": torch.tensor(noise, device=device)}
+
+
+def _seeded_flagship(**config):
+    """The flagship U-Net (training's 1000-step diffusion) with phase 4's
+    seeded weights, zero layers at 1/10 scale: every such call gives the same
+    weights."""
+    import torch
+
+    from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
+
+    cfg = dict(flagship_config(), **config)
+    model, diffusion = create_model_and_diffusion(cfg, device="cuda", seed=0)
+    randomize_zero_modules(model, torch.Generator().manual_seed(1))
+    return cfg, model, diffusion
+
+
+def _rel_l2_tensors(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_parallel(ckpt_root, card):
+    """a. remat, b. DDP and FSDP2 in a group of one rank on NCCL, c. two gloo
+    ranks on the one card, d. sampling over two replicas. Returns the launch
+    counts and routes of each path."""
+    t0 = time.perf_counter()
+    counts = {}
+    counts.update(_parallel_remat(card))
+    counts.update(_parallel_group_of_one(ckpt_root, card))
+    counts.update(_parallel_two_ranks(ckpt_root, card))
+    counts.update(_parallel_sample(card))
+    emit({"phase": "parallel", "wall_s": time.perf_counter() - t0})
+    return counts
+
+
+def _parallel_remat(card):
+    """One train step with use_checkpoint and one without, the same weights,
+    batch, noise and dropout masks (p = 0.1): loss and gradients within
+    5e-3 in bf16 and 1e-5 in f32 (TF32 off); peak memory, ms per step and
+    launches per step (14 + 14 + 20 with remat) both ways."""
+    import torch
+
+    paths = {}
+    for dtype, band in (("bfloat16", 5e-3), ("float32", 1e-5)):
+        B = FLAGSHIP_B
+        while True:
+            try:
+                rows = _remat_rows(dtype, B, paths)
+                break
+            except torch.cuda.OutOfMemoryError:
+                if B == 1:
+                    raise
+                B = 1
+                torch.cuda.empty_cache()
+        plain, remat = rows
+        row = {"phase": "parallel_remat", "dtype": dtype, "B": B, "K": FLAGSHIP_K,
+               "dropout": PARALLEL_DROPOUT,
+               "loss_rel_err": abs(remat["loss"] - plain["loss"]) / abs(plain["loss"]),
+               "grad_rel_l2": _rel_l2_tensors(remat.pop("grads"), plain.pop("grads")),
+               "plain": plain, "remat": remat, "nvidia_smi": card}
+        emit(row)
+        if not (row["loss_rel_err"] <= band and row["grad_rel_l2"] <= band):
+            raise RuntimeError(f"remat step ({dtype}) differs from the plain one beyond {band}: "
+                               f"loss {row['loss_rel_err']}, gradients {row['grad_rel_l2']}")
+        if dtype == "bfloat16" and not remat["peak_mem_gib"] < plain["peak_mem_gib"]:
+            raise RuntimeError("remat did not lower the step's peak memory")
+    return paths
+
+
+def _remat_rows(dtype, B, paths):
+    import torch
+
+    from lfvdm_tpu_torch.models.unet import set_dropout_generator
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.training.train_loop import backward_microbatches
+
+    rows = []
+    for remat in (False, True):
+        cfg, model, diffusion = _seeded_flagship(compute_dtype=dtype, dropout=PARALLEL_DROPOUT,
+                                                 use_checkpoint=remat)
+        x = _flagship_step_inputs(cfg, B, seed=70)
+        batch = {k: x[k] for k in BATCH_KEYS}
+        gen = torch.Generator(device="cuda")
+        set_dropout_generator(model, gen)
+        model.train()
+
+        def step():
+            gen.manual_seed(71)
+            model.zero_grad(set_to_none=True)
+            return backward_microbatches(model, diffusion, batch, x["t"], x["w"],
+                                         noise=x["noise"])[0]
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(PARALLEL_STEPS):
+            loss = step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / PARALLEL_STEPS * 1e3
+        launches, routes = read_counts()
+        if dtype == "bfloat16":
+            _check_launches(launches, routes, PARALLEL_STEPS,
+                            per_forward=REMAT_PER_STEP if remat else PER_FORWARD)
+            paths["parallel_remat" if remat else "parallel_no_remat"] = (launches, routes)
+        rows.append({"use_checkpoint": remat, "loss": loss.item(), "ms_per_step": ms,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches_per_step": {k: v / PARALLEL_STEPS for k, v in launches.items()},
+                     "grads": torch.cat([p.grad.flatten().float() for p in model.parameters()])})
+        del model
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _parallel_group_of_one(ckpt_root, card):
+    """A group of one rank on NCCL: TrainLoop unwrapped, through DDP and
+    through FSDP2 on a (1, 1) mesh (its all-gathers and reduce-scatters run,
+    over one rank), the same weights and batches: parameters and Adam's
+    first moment after the steps against the unwrapped loop's, ms per step;
+    the FSDP2 run saved and resumed unwrapped, bitwise."""
+    import torch
+    import torch.distributed as dist
+
+    from lfvdm_tpu_torch.config import flagship_config
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.parallel import mesh as mesh_lib
+    from lfvdm_tpu_torch.parallel import sharding
+    from lfvdm_tpu_torch.training.train_loop import TrainLoop, train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=ckpt_root)
+    paths, states, row = {}, {}, {"phase": "parallel_group_of_one", "backend": "nccl",
+                                  "world": 1, "B": FLAGSHIP_B, "K": FLAGSHIP_K,
+                                  "steps": PARALLEL_STEPS, "nvidia_smi": card}
+    try:
+        mesh = mesh_lib.make_mesh(fsdp=1, device_type="cuda")
+        row["mesh"] = list(mesh.shape)
+        steps = [_flagship_step_inputs(flagship_config(), FLAGSHIP_B, seed=80 + i)
+                 for i in range(1 + PARALLEL_STEPS)]
+
+        def new_loop(kind, run="", resume=False):
+            _, model, diffusion = _seeded_flagship()
+            if kind == "fsdp":
+                model = sharding.shard_model(model, mesh)
+            return TrainLoop(model=model, diffusion=diffusion, data=iter(()),
+                             batch_size=FLAGSHIP_B, max_frames=FLAGSHIP_K, lr=PARALLEL_LR,
+                             ema_rate="0.9999", checkpoint_dir=os.path.join(tmp, run or kind),
+                             mesh=None if kind == "plain" else mesh, resume=resume)
+
+        for kind in ("plain", "ddp", "fsdp"):
+            loop = new_loop(kind)
+            ms = []
+            for i, x in enumerate(steps):
+                if i == 1:
+                    ops.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = train_step(loop.state, {k: x[k] for k in BATCH_KEYS}, x["t"], x["w"],
+                               diffusion=loop.diffusion, noise=x["noise"])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if m["skipped_nonfinite"].item():
+                    raise RuntimeError(f"{kind}: a non-finite step")
+            launches, routes = read_counts()
+            _check_launches(launches, routes, PARALLEL_STEPS)
+            paths[f"parallel_{kind}"] = (launches, routes)
+            state = loop.state.state_dict()
+            states[kind] = state
+            row[kind] = {"wrapper": type(loop.model).__name__, "ms_per_step": ms[1:],
+                         "first_step_ms": ms[0], "loss": m["loss"].tolist()}
+            if kind == "fsdp":
+                loop.save()
+                resumed = new_loop("plain", run="fsdp", resume=True)
+                row["fsdp_resumed_unwrapped_bitwise"] = _states_equal(
+                    state, resumed.state.state_dict())
+                del resumed
+            del loop
+            torch.cuda.empty_cache()
+        want = states["plain"]
+        for kind in ("ddp", "fsdp"):
+            got = states[kind]
+            p = torch.cat([(got["params"][k] - want["params"][k]).flatten() for k in want["params"]])
+            row[kind]["params_max_abs"] = p.abs().max().item()
+            row[kind]["params_bitwise"] = bool(p.abs().max().item() == 0)
+            row[kind]["params_rel_l2"] = (p.norm() / torch.cat(
+                [v.flatten() for v in want["params"].values()]).norm()).item()
+            row[kind]["grad_rel_l2"] = _rel_l2_tensors(
+                torch.cat([v.flatten() for v in got["adam"]["exp_avg"].values()]),
+                torch.cat([v.flatten() for v in want["adam"]["exp_avg"].values()]))
+            row[kind]["ms_per_step_vs_plain"] = (sum(row[kind]["ms_per_step"])
+                                                 / sum(row["plain"]["ms_per_step"]))
+        emit(row)
+        for kind in ("ddp", "fsdp"):
+            if not (row[kind]["params_rel_l2"] <= 5e-3 and row[kind]["grad_rel_l2"] <= 5e-3):
+                raise RuntimeError(f"{kind} in a group of one differs from the unwrapped loop: "
+                                   f"{row[kind]}")
+        if not row["fsdp_resumed_unwrapped_bitwise"]:
+            raise RuntimeError("the FSDP2 run resumed unwrapped differs from the saved state")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
+    return paths
+
+
+def _parallel_two_ranks(ckpt_root, card):
+    """Two processes on the one card in a gloo group (NCCL refuses two ranks
+    on one device), B=1 each: DDP's and FSDP2's (fsdp 2) step against one
+    process's B=2 step on the same rows and noise (bf16 band), parameters
+    and Adam's first moment; 7 + 7 + 10 launches per rank and step."""
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_", dir=ckpt_root)
+    paths = {}
+    try:
+        cfg, model, _ = _seeded_flagship()
+        torch.save(model.state_dict(), os.path.join(tmp, "params.pt"))
+        del model
+        x = _flagship_step_inputs(cfg, FLAGSHIP_B, seed=90, device="cpu")
+        torch.save(x, os.path.join(tmp, "inputs.pt"))
+        torch.cuda.empty_cache()
+        job = dict(root=os.path.dirname(os.path.abspath(__file__)), port=_free_port(), cfg=cfg,
+                   K=FLAGSHIP_K, lr=PARALLEL_LR, tmp=tmp, params=os.path.join(tmp, "params.pt"),
+                   inputs=os.path.join(tmp, "inputs.pt"))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", TWO_RANK_CHILD, json.dumps(job)],
+                                  env=dict(os.environ, RANK=str(r), WORLD_SIZE="2",
+                                           LOCAL_RANK="0"),
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        results = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=600)
+                line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+                if p.returncode != 0 or not line:
+                    raise RuntimeError(f"a rank failed ({p.returncode}): {out[-2000:]}\n"
+                                       f"{err[-6000:]}")
+                results.append(json.loads(line[0][len("RESULT "):]))
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait(timeout=30)
+        row = {"phase": "parallel_two_ranks", "backend": "gloo", "ranks_on_one_card": 2,
+               "B_per_rank": 1, "wall_s": time.perf_counter() - t0, "ranks": results,
+               "nvidia_smi": card}
+        for kind in ("ddp", "fsdp"):
+            for key in ("params", "exp_avg"):  # Adam's first moment: 0.1 x the gradient
+                d2, ref2 = (sum(r[kind]["squared_distances"][key][i] for r in results)
+                            for i in (0, 1))
+                row[f"{kind}_{key}_rel_l2"] = math.sqrt(d2 / ref2)
+        emit(row)
+        for kind in ("ddp", "fsdp"):
+            if not (row[f"{kind}_params_rel_l2"] <= 5e-3 and row[f"{kind}_exp_avg_rel_l2"] <= 5e-3):
+                raise RuntimeError(f"two {kind} ranks differ from one process's step: {row}")
+            for r in results:
+                if r[kind]["skipped"]:
+                    raise RuntimeError(f"rank {r['rank']} {kind}: a non-finite step")
+                _check_launches(r[kind]["launches"], r[kind]["routes"], 1)
+                paths[f"parallel_two_ranks_{kind}_rank{r['rank']}"] = (r[kind]["launches"],
+                                                                       r[kind]["routes"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
+def _parallel_sample(card):
+    """VideoSampler(devices=[cuda:0, cuda:0]): a DDIM window (ddim25, B=2)
+    over two replicas on the one card against the one-device window (within
+    5e-3), both timed in turns; 7 + 7 + 10 launches per replica call."""
+    import torch
+
+    from lfvdm_tpu_torch.config import create_diffusion
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.sampling.driver import VideoSampler
+
+    cfg, model, _ = flagship_model("cuda")
+    diff = create_diffusion(dict(cfg, timestep_respacing="ddim25"))
+    _, _, kw = window_inputs(cfg, "cuda", torch.Generator(device="cuda").manual_seed(95))
+    window = (kw["x0"], kw["frame_indices"], kw["obs_mask"], kw["latent_mask"])
+    one = VideoSampler(model, diff, use_ddim=True)
+    two = VideoSampler(model, diff, use_ddim=True,
+                       devices=[torch.device("cuda", 0), torch.device("cuda", 0)])
+
+    def run(sampler):
+        return sampler.sample_window(*window,
+                                     generator=torch.Generator(device="cuda").manual_seed(96))
+
+    ops.reset_launch_counts()
+    two.model_calls = 0
+    got = run(two)
+    torch.cuda.synchronize()
+    launches, routes = read_counts()
+    calls = two.model_calls
+    want = run(one)
+    times = _wall_ms_in_turns({"one_device": lambda: run(one), "two_replicas": lambda: run(two)},
+                              n=1)
+    row = {"phase": "parallel_sample", "sampler": "ddim", "respacing": "ddim25",
+           "B": FLAGSHIP_B, "devices": ["cuda:0", "cuda:0"], "replica_calls": calls,
+           "launches": launches, "routes": routes,
+           "rel_l2": _rel_l2_tensors(got, want), "bitwise": bool(torch.equal(got, want)),
+           "ms_per_window_in_turns": times, "nvidia_smi": card}
+    emit(row)
+    if not (torch.isfinite(got).all() and row["rel_l2"] <= 5e-3):
+        raise RuntimeError(f"the window over two replicas differs from one device's: {row}")
+    _check_launches(launches, routes, calls)
+    if calls != 2 * 25:
+        raise RuntimeError(f"expected 2 x 25 replica calls, got {calls}")
+    return {"parallel_sample": (launches, routes)}
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: the latent path
 # ---------------------------------------------------------------------------
 
@@ -2157,7 +2611,7 @@ def phase_cli(ckpt_root, card):
         view = types.SimpleNamespace(
             model=loop.model, diffusion=create_diffusion(dict(loop.config, timestep_respacing="25")),
             state=loop.state, max_frames=FLAGSHIP_K, codec=loop.codec, device=loop.device,
-            step=loop.step)
+            step=loop.step, ema_params=loop.ema_params, sampling_model=loop.sampling_model)
         ops.reset_launch_counts()
         vids = make_sample_fn(vis_batch, out_dir=os.path.join(run_dir, "vis") if gifs else None,
                               seed=0)(view)
@@ -2585,13 +3039,14 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     phase_train_parity()
+    parallel = phase_parallel(ckpt_root, card)
     latent = phase_latent(ckpt_root, card)
     cli = phase_cli(ckpt_root, card)
     with torch_tf32_defaults():
         phase_evals(ckpt_root, card)
     launches = {"train": train_launches, "sample_video": sample_launches}
     routes = {"train": train_routes, "sample_video": sample_routes}
-    for path, (c, r) in {**reuse, **serve, **latent, **cli}.items():
+    for path, (c, r) in {**reuse, **serve, **parallel, **latent, **cli}.items():
         launches[path], routes[path] = c, r
     emit(kernels_line(results, launches, routes))
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

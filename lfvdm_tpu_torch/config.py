@@ -112,9 +112,6 @@ def create_model(
     trainer and the sampler set the one they need."""
     if image_size not in CHANNEL_MULT_BY_IMAGE_SIZE:
         raise ValueError(f"unsupported image size: {image_size}")
-    if use_checkpoint:
-        raise NotImplementedError("use_checkpoint (rematerialisation) is not ported yet "
-                                  "(ROADMAP A5)")
     device = resolve_device(device)
     attention_ds = tuple(image_size // int(res) for res in str(attention_resolutions).split(","))
     model = UNetVideoModel(
@@ -130,6 +127,7 @@ def create_model(
         use_scale_shift_norm=use_scale_shift_norm,
         use_rpe_net=use_rpe_net,
         fused_skip_conv=fused_skip_conv,
+        use_checkpoint=use_checkpoint,
         dtype=getattr(torch, compute_dtype),
     )
     init_parameters(model, torch.Generator().manual_seed(seed))

@@ -416,13 +416,16 @@ class GaussianDiffusion:
 
     def ddim_sample_loop(self, model_fn, shape: Tuple[int, ...], *, device, noise=None,
                          generator=None, clip_denoised=True, denoised_fn=None,
-                         model_kwargs=None, eta=0.0, dtype=torch.float32) -> torch.Tensor:
-        """The full DDIM sampler, one model call per step."""
+                         model_kwargs=None, eta=0.0, dtype=torch.float32,
+                         step_noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """The full DDIM sampler, one model call per step. ``step_noise``:
+        as ``p_sample_loop``'s, read only when ``eta`` != 0."""
         img = noise if noise is not None else _randn(shape, None, generator, device, dtype)
         B = shape[0]
-        for s in range(self.num_timesteps - 1, -1, -1):
+        for i, s in enumerate(range(self.num_timesteps - 1, -1, -1)):
             t = torch.full((B,), s, dtype=torch.int64, device=img.device)
             img = self.ddim_sample(model_fn, img, t, eta=eta, generator=generator,
+                                   noise=_step(step_noise, i) if eta != 0.0 else None,
                                    clip_denoised=clip_denoised, denoised_fn=denoised_fn,
                                    model_kwargs=model_kwargs)["sample"]
         return img

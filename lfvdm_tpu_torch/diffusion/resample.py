@@ -1,10 +1,10 @@
 """Timestep schedule samplers (importance sampling over t): a copy of
-lfvdm_tpu/diffusion/resample.py, single-process.
+lfvdm_tpu/diffusion/resample.py.
 
 Host-side numpy objects that draw the per-batch timesteps of the train step.
-The JAX package gathers the loss-aware sampler's (t, loss) pairs across
-processes; the port trains on one card, so the update applies the local
-pairs (a multi-card trainer would gather them first).
+The loss-aware sampler's update gathers every process's (t, loss) pairs in
+rank order first, so each rank applies the same update and holds the same
+weights.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 from abc import ABC, abstractmethod
 
 import numpy as np
+
+from ..utils.device import process_index_and_count
 
 
 def create_named_schedule_sampler(name: str, diffusion):
@@ -49,9 +51,18 @@ class UniformSampler(ScheduleSampler):
 
 class LossAwareSampler(ScheduleSampler):
     def update_with_local_losses(self, local_ts, local_losses):
-        """Update the reweighting from this process's (t, loss) pairs."""
+        """Update the reweighting from this process's (t, loss) pairs,
+        gathered from every process of a ``torch.distributed`` group in rank
+        order (every rank must call it at the same step)."""
         ts = np.asarray(local_ts).reshape(-1)
         losses = np.asarray(local_losses).reshape(-1)
+        if process_index_and_count()[1] > 1:
+            import torch.distributed as dist
+
+            gathered = [None] * dist.get_world_size()
+            dist.all_gather_object(gathered, (ts, losses))
+            ts = np.concatenate([g[0] for g in gathered])
+            losses = np.concatenate([g[1] for g in gathered])
         self.update_with_all_losses([int(t) for t in ts], [float(l) for l in losses])
 
     @abstractmethod

@@ -101,20 +101,23 @@ def preprocess_videos(videos: np.ndarray, target_resolution: int = 224,
 
 class FVD:
     """End-to-end FVD: preprocess -> I3D features -> Fréchet distance, the
-    features on ``device`` (the card by default)."""
+    features on ``device`` (the card by default), or with ``devices`` each
+    chunk's rows split over one I3D replica per device."""
 
-    def __init__(self, i3d_weights: str | None = None, batch_size: int = 16, device="cuda"):
+    def __init__(self, i3d_weights: str | None = None, batch_size: int = 16, device="cuda",
+                 devices=None):
         from .i3d import I3DFeatureExtractor
 
-        self.extractor = I3DFeatureExtractor(weights_path=i3d_weights, device=device)
+        self.extractor = I3DFeatureExtractor(weights_path=i3d_weights, device=device,
+                                             devices=devices)
         self.batch_size = batch_size
 
     def _fused_features(self, chunk: np.ndarray) -> np.ndarray:
         """One uint8 (B, T, H, W, C) chunk -> (B, 400): only the uint8 goes
         to the card and only the features come back; the resize, the scale
         and I3D run there."""
-        x = torch.as_tensor(np.ascontiguousarray(chunk), device=self.extractor.device)
-        return self.extractor.features(preprocess(x)).cpu().numpy()
+        return self.extractor.features(np.ascontiguousarray(chunk), prepare=preprocess
+                                       ).cpu().numpy()
 
     def extract_features(self, videos: np.ndarray) -> np.ndarray:
         """uint8 (B, T, H, W, C) -> (B, 400) logit features (the 400-d

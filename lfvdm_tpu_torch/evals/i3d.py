@@ -21,6 +21,7 @@ against published scores.
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 from typing import Optional, Sequence
@@ -28,6 +29,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.sharding import split_rows
 from torch import nn
 
 
@@ -172,12 +175,15 @@ class I3DFeatureExtractor:
     computed on ``device`` (the card by default) in full f32.
 
     ``weights_path`` (or ``$LFVDM_I3D_WEIGHTS``) names the JAX package's
-    ``.npz``; without one the backbone is ``I3D.seeded_init(0)``."""
+    ``.npz``; without one the backbone is ``I3D.seeded_init(0)``.
+    ``devices``: one replica per device (``device`` is then the first), and
+    each batch's rows split over them in contiguous blocks; a batch they do
+    not divide runs on the first."""
 
-    def __init__(self, weights_path: Optional[str] = None, device="cuda"):
+    def __init__(self, weights_path: Optional[str] = None, device="cuda", devices=None):
         from ..utils.device import resolve_device
 
-        self.device = resolve_device(device)
+        self.device = resolve_device(devices[0] if devices else device)
         self.module = I3D()
         self.pretrained = False
         weights_path = weights_path or os.environ.get("LFVDM_I3D_WEIGHTS")
@@ -194,14 +200,26 @@ class I3DFeatureExtractor:
                       "numbers (set LFVDM_I3D_WEIGHTS to a converted checkpoint).")
             self.module.seeded_init(0)
         self.module.to(self.device).eval()
+        self.replicas = [self.module] + [copy.deepcopy(self.module).to(d)
+                                         for d in (devices or [])[1:]]
 
     @torch.no_grad()
-    def features(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, T, H, W) f32 on ``device`` -> (B, 400), TF32 off."""
+    def features(self, x, prepare=None) -> torch.Tensor:
+        """(B, 3, T, H, W) f32 in [-1, 1] on any device -> (B, 400) on
+        ``device``, TF32 off; each replica takes its block of rows (``x`` may
+        be anything ``prepare`` maps to that on the replica's device)."""
         from ..utils.device import full_f32
 
+        models = self.replicas
+        if len(models) == 1 or len(x) % len(models):
+            models, blocks = [self.module], [torch.as_tensor(x, device=self.device)]
+        else:
+            blocks = split_rows(x, [next(m.parameters()).device for m in models])
+        out = []
         with full_f32():
-            return self.module(x)
+            for m, xi in zip(models, blocks):
+                out.append(m(prepare(xi) if prepare is not None else xi).to(self.device))
+        return torch.cat(out)
 
     def __call__(self, videos: np.ndarray) -> np.ndarray:
         x = torch.as_tensor(np.asarray(videos, np.float32), device=self.device)

@@ -23,6 +23,13 @@ place; the next ResBlock takes those sums when nothing came between. The
 JAX package's other TPU-only rewrites (split up path, dilated upsample conv,
 remat policies) are not ported: this module runs the plain forms they equal
 (concat + conv, nearest + conv).
+
+``use_checkpoint`` is the counterpart of JAX's ``nn.remat`` of each ResBlock
+and FactorizedAttentionBlock: in training each such block keeps only its
+inputs and runs its forward again in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), so its kernels launch twice per
+step. The recompute draws the same dropout masks as the forward, as JAX's
+remat replays the same key (``_remat``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import os
 from typing import Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 import torch.nn.functional as F
 from torch import nn
 
@@ -69,14 +77,44 @@ def set_dropout_generator(model: nn.Module, generator) -> None:
             m.generator = generator
 
 
+def _remat(fn, generator, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint``, its
+    recompute drawing the same random numbers from ``generator`` as the
+    forward did. (``checkpoint`` restores the global RNGs itself, not an
+    explicit generator's.) The recompute puts the generator back where the
+    forward left it, so the run's stream goes on unchanged."""
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    start = generator.get_state()
+    ran = []
+
+    def replay(*a, **kw):
+        if not ran:  # the forward
+            ran.append(True)
+            return fn(*a, **kw)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a, **kw)
+        finally:
+            generator.set_state(resume)
+
+    return torch.utils.checkpoint.checkpoint(replay, *args, use_reentrant=False, **kwargs)
+
+
+def _rematerialises(block: nn.Module) -> bool:
+    return block.use_checkpoint and block.training and torch.is_grad_enabled()
+
+
 class ResBlock(nn.Module):
     """Residual block with timestep-embedding conditioning."""
 
     def __init__(self, channels: int, emb_channels: int, out_channels: int, *,
                  dropout: float = 0.0, use_scale_shift_norm: bool = False,
-                 dtype=torch.float32):
+                 use_checkpoint: bool = False, dtype=torch.float32):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
+        self.use_checkpoint = use_checkpoint
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(),
             Conv2d(channels, out_channels, 3, padding=1, dtype=dtype))
@@ -102,6 +140,12 @@ class ResBlock(nn.Module):
         as one ``skip_conv_stats`` call, and ``out_stats`` holds those sums;
         otherwise ``out_stats`` is None. ``impl="plain"`` asks that call for
         its plain version."""
+        if _rematerialises(self):
+            return _remat(self._forward, self.out_layers[2].generator, x, emb, in_stats, parts,
+                          impl)
+        return self._forward(x, emb, in_stats, parts, impl)
+
+    def _forward(self, x, emb, in_stats, parts, impl):
         h = self.in_layers[0](x, precomputed_sums=in_stats)
         h = self.in_layers[2](self.in_layers[1](h))
         emb_out = self.emb_layers(emb)[:, :, None, None]
@@ -146,8 +190,9 @@ class FactorizedAttentionBlock(nn.Module):
     """Temporal (RPE, masked) then spatial attention over (B·T, C, H, W)."""
 
     def __init__(self, channels: int, num_heads: int, use_rpe_net: bool, time_embed_dim: int, *,
-                 dtype=torch.float32):
+                 use_checkpoint: bool = False, dtype=torch.float32):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.temporal_attention = RPEAttention(
             channels, num_heads, use_rpe_net=use_rpe_net, time_embed_dim=time_embed_dim,
             dtype=dtype)
@@ -157,6 +202,13 @@ class FactorizedAttentionBlock(nn.Module):
 
     def forward(self, x, temb, frame_indices, attn_mask, *, T: int,
                 return_attn: bool = False, impl: str = "auto"):
+        if _rematerialises(self):
+            return _remat(self._forward, None, x, temb, frame_indices, attn_mask, T=T,
+                          return_attn=return_attn, impl=impl)
+        return self._forward(x, temb, frame_indices, attn_mask, T=T, return_attn=return_attn,
+                             impl=impl)
+
+    def _forward(self, x, temb, frame_indices, attn_mask, *, T, return_attn, impl):
         BT, C, Hs, Ws = x.shape
         B = BT // T
         # Temporal: tokens = frames, batched over pixel sites.
@@ -223,7 +275,9 @@ class UNetVideoModel(nn.Module):
     (see ``forward``). ``impl="plain"`` runs every kernel's plain
     version (for comparisons on the card). ``fused_skip_conv`` (an attribute
     that may be changed after construction) routes the up path's skip
-    projections through ``ops.skipconv.skip_conv_stats``.
+    projections through ``ops.skipconv.skip_conv_stats``. ``use_checkpoint``
+    rematerialises each ResBlock and FactorizedAttentionBlock in training
+    (see the module docstring).
     """
 
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
@@ -231,7 +285,8 @@ class UNetVideoModel(nn.Module):
                  dropout: float = 0.0, channel_mult: Tuple[int, ...] = (1, 2, 4, 8),
                  num_heads: int = 1, num_heads_upsample: int = -1,
                  use_scale_shift_norm: bool = False, use_rpe_net: bool = True,
-                 fused_skip_conv: bool = True, dtype=torch.float32):
+                 fused_skip_conv: bool = True, use_checkpoint: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.fused_skip_conv = fused_skip_conv
         self.in_channels, self.out_channels = in_channels, out_channels
@@ -243,10 +298,12 @@ class UNetVideoModel(nn.Module):
 
         def res(ch_in, ch_out):
             return ResBlock(ch_in, ted, ch_out, dropout=dropout,
-                            use_scale_shift_norm=use_scale_shift_norm, dtype=dtype)
+                            use_scale_shift_norm=use_scale_shift_norm,
+                            use_checkpoint=use_checkpoint, dtype=dtype)
 
         def attn(ch, heads):
-            return FactorizedAttentionBlock(ch, heads, use_rpe_net, ted, dtype=dtype)
+            return FactorizedAttentionBlock(ch, heads, use_rpe_net, ted,
+                                            use_checkpoint=use_checkpoint, dtype=dtype)
 
         self.time_embed = nn.Sequential(
             Linear(model_channels, ted, dtype=dtype), nn.SiLU(), Linear(ted, ted, dtype=dtype))

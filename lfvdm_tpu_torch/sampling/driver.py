@@ -10,30 +10,46 @@ Sampling happens in diffusion space; with a ``codec`` (``diffusion/codecs.py``)
 the assembled video is decoded once at the end (to pixels through the VAE in
 latent space, out of the subbands in wavelet space).
 
-Not ported yet: a device mesh (ROADMAP A5).
+``devices`` samples each window over several devices of one process (the
+counterpart of the JAX driver's mesh): one replica of the model per device,
+each window's batch split into contiguous blocks of rows, one per device,
+the results put back in row order. Each replica draws the noise of the whole
+batch from its own copy of the caller's generator and keeps its rows, so
+the samples are the one-device sampler's. The replicas run in turn from one
+thread: their launches are asynchronous and a window makes no host sync, so
+a card computes while the host enqueues the next card's window, with none of
+the launch-counter races and per-thread device state that a thread per card
+would bring.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+import copy
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..diffusion.dpm_solver import dpm_solver_pp_sample_loop
 from ..diffusion.gaussian import GaussianDiffusion
+from ..parallel.sharding import row_blocks
+from ..utils.device import process_index_and_count
 from .schemes import sampling_schemes
 
 
 class VideoSampler:
     """Samples windows and long videos with ``model`` (an ``nn.Module`` on
     the sampling device) under ``diffusion``; ``codec`` decodes a sampled
-    video out of diffusion space."""
+    video out of diffusion space. ``devices``: sample each window's rows
+    over these devices (see the module docstring); ``model`` moves to the
+    first, and the others get copies. ``model_calls`` counts every
+    replica's calls."""
 
     def __init__(self, model: torch.nn.Module, diffusion: GaussianDiffusion, *,
                  clip_denoised: bool = True, use_ddim: bool = False, use_dpm: bool = False,
-                 eta: float = 0.0, encoder_reuse: int = 1, codec=None):
+                 eta: float = 0.0, encoder_reuse: int = 1, codec=None,
+                 devices: Optional[Sequence[torch.device]] = None):
         if use_ddim and use_dpm:
             raise ValueError("pick one of use_ddim / use_dpm")
         # Encoder reuse (arXiv:2312.09608): the U-Net's down and middle path
@@ -43,7 +59,14 @@ class VideoSampler:
             raise ValueError(f"encoder_reuse must be >= 1, got {encoder_reuse}")
         if encoder_reuse > 1 and (use_ddim or use_dpm):
             raise ValueError("encoder_reuse supports the ancestral sampler only")
+        if devices is not None and len(devices) > 1 and process_index_and_count()[1] > 1:
+            raise ValueError("sampling over devices supports one process; under a launcher "
+                             "each process samples its own share of the videos")
+        if devices:
+            model = model.to(devices[0])
         self.model = model
+        self.replicas = [model] + [copy.deepcopy(model).to(d) for d in (devices or [])[1:]]
+        self._warned_tail = set()
         self.diffusion = diffusion
         self.codec = codec
         self.device = next(model.parameters()).device
@@ -55,29 +78,33 @@ class VideoSampler:
         self.model_calls = 0  # U-Net forwards run by this sampler
         self.reuse_calls = 0  # of which up-path-only calls on cached features
 
-    def _model_fn(self, x, ts, **kw):
-        self.model_calls += 1
-        out, _ = self.model(x, ts, **kw)
-        return out
+    def _model_fn(self, model):
+        def fn(x, ts, **kw):
+            self.model_calls += 1
+            out, _ = model(x, ts, **kw)
+            return out
+
+        return fn
 
     def _model_fn_attn(self, x, ts, **kw):
         self.model_calls += 1
         return self.model(x, ts, return_attn_weights=True, **kw)
 
-    def _model_fn_features(self, kwargs):
+    def _model_fn_features(self, model, kwargs):
         """``model_fn_features(x, t, features)`` with ``kwargs`` bound."""
 
         def fn(x, ts, feats):
             self.model_calls += 1
             self.reuse_calls += feats is not None
-            out, _, feats = self.model(x, ts, features=feats, return_features=True, **kwargs)
+            out, _, feats = model(x, ts, features=feats, return_features=True, **kwargs)
             return out, feats
 
         return fn
 
-    def _window_args(self, x0, frame_indices, obs_mask, latent_mask):
-        """The model kwargs of one window on the sampler's device, and its shape."""
-        dev = self.device
+    def _window_args(self, x0, frame_indices, obs_mask, latent_mask, dev=None):
+        """The model kwargs of one window on ``dev`` (default: the sampler's
+        device), and its shape."""
+        dev = dev or self.device
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
         kwargs = dict(
             x0=x0,
@@ -95,20 +122,52 @@ class VideoSampler:
         Arrays may be numpy or tensors; they are moved to the sampler's
         device. ``generator`` (on that device) draws the noise, or pass the
         terminal ``noise`` and, for the ancestral sampler, each step's
-        ``step_noise``. Returns a (B, K, C, H, W) f32 tensor.
+        ``step_noise``. Returns a (B, K, C, H, W) f32 tensor on the sampler's
+        device.
         """
-        kwargs, shape = self._window_args(x0, frame_indices, obs_mask, latent_mask)
-        common = dict(device=self.device, noise=noise, generator=generator,
+        B, n = len(x0), len(self.replicas)
+        if n == 1 or B % n:
+            if n > 1 and B not in self._warned_tail:
+                self._warned_tail.add(B)
+                print(f"sample_window: batch {B} not divisible by the {n} devices; running "
+                      "replicated")
+            return self._window(self.model, x0, frame_indices, obs_mask, latent_mask,
+                                generator, noise, step_noise)
+        start = generator.get_state() if generator is not None else None
+        outs = []
+        for model, rows in zip(self.replicas, row_blocks(B, n)):
+            dev = next(model.parameters()).device
+            gen = None
+            if generator is not None:
+                gen = torch.Generator(device=dev)
+                gen.set_state(start)
+            draw = _full_batch_draws((B,) + tuple(x0.shape[1:]), gen, dev)
+            rows_noise = noise[rows].to(dev) if noise is not None else draw(None)[rows]
+            rows_steps = _Rows(step_noise.__getitem__ if step_noise is not None else draw,
+                               rows, dev)
+            part = [a[rows] for a in (x0, frame_indices, obs_mask, latent_mask)]
+            outs.append(self._window(model, *part, None, rows_noise, rows_steps))
+        if generator is not None:
+            generator.set_state(gen.get_state())  # where the one-device window leaves it
+        return torch.cat([o.to(self.device) for o in outs])
+
+    def _window(self, model, x0, frame_indices, obs_mask, latent_mask, generator, noise,
+                step_noise):
+        """One window on ``model``'s device."""
+        dev = next(model.parameters()).device
+        kwargs, shape = self._window_args(x0, frame_indices, obs_mask, latent_mask, dev)
+        common = dict(device=dev, noise=noise, generator=generator,
                       clip_denoised=self.clip_denoised, model_kwargs=kwargs)
-        with _eval_mode(self.model):
+        model_fn = self._model_fn(model)
+        with _eval_mode(model):
             if self.use_ddim:
-                return self.diffusion.ddim_sample_loop(self._model_fn, shape, eta=self.eta,
-                                                       **common)
+                return self.diffusion.ddim_sample_loop(model_fn, shape, eta=self.eta,
+                                                       step_noise=step_noise, **common)
             if self.use_dpm:
-                return dpm_solver_pp_sample_loop(self.diffusion, self._model_fn, shape, **common)
+                return dpm_solver_pp_sample_loop(self.diffusion, model_fn, shape, **common)
             return self.diffusion.p_sample_loop(
-                self._model_fn, shape, step_noise=step_noise, encoder_reuse=self.encoder_reuse,
-                model_fn_features=self._model_fn_features(kwargs), **common)
+                model_fn, shape, step_noise=step_noise, encoder_reuse=self.encoder_reuse,
+                model_fn_features=self._model_fn_features(model, kwargs), **common)
 
     @torch.no_grad()
     def sample_window_attn(self, x0, frame_indices, obs_mask, latent_mask, *, generator=None,
@@ -189,6 +248,29 @@ class VideoSampler:
             decoded = self.codec.decode(torch.as_tensor(samples, device=self.device))
             samples = decoded.cpu().numpy()
         return samples, indices_used
+
+
+def _full_batch_draws(shape, generator, device):
+    """``draw(i)``: the next noise of the whole batch from ``generator``."""
+
+    def draw(i):
+        if generator is None:
+            raise ValueError("pass noise= or a torch.Generator on the sampling device")
+        return torch.randn(shape, generator=generator, device=device)
+
+    return draw
+
+
+class _Rows:
+    """Step noise for one replica: step ``i``'s noise of the whole batch
+    (``source(i)``, called once per step in step order) cut to ``rows``, on
+    ``device``."""
+
+    def __init__(self, source, rows: slice, device):
+        self.source, self.rows, self.device = source, rows, device
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        return self.source(i)[self.rows].to(self.device)
 
 
 @contextlib.contextmanager

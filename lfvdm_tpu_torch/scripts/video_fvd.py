@@ -21,6 +21,7 @@ import numpy as np
 
 from ..data.datasets import get_test_dataset
 from ..evals.fvd import FVD, frechet_distance
+from ..parallel.mesh import make_eval_mesh
 
 BATCH_SIZES = {"mazes_cwvae": 16, "minerl": 8, "carla_no_traffic": 4,
                "carla_no_traffic_2x": 4, "carla_no_traffic_2x_encoded": 4,
@@ -59,13 +60,13 @@ def real_dataset_name(dataset_name: str) -> str:
 
 def compute_fvd(eval_dir: Path, dataset_name: str, num_videos: int, sample_idx: int,
                 T: int, i3d_weights=None, batch_size=None, real_dir=None,
-                temporal_stride: int = 1, device="cuda") -> float:
+                temporal_stride: int = 1, device="cuda", devices=None) -> float:
     """The FVD of the first ``num_videos`` samples against as many real
     videos, each cut to ``T`` frames and then to every ``temporal_stride``-th
-    frame."""
+    frame; ``devices`` splits each feature batch over them."""
     if batch_size is None:
         batch_size = BATCH_SIZES.get(dataset_name, 8)
-    fvd = FVD(i3d_weights=i3d_weights, batch_size=batch_size, device=device)
+    fvd = FVD(i3d_weights=i3d_weights, batch_size=batch_size, device=device, devices=devices)
     samples = SampleDataset(Path(eval_dir) / "samples", sample_idx, num_videos)
     if real_dir is not None:
         # The real side from sample-format uint8 files (VAE-roundtripped
@@ -103,8 +104,8 @@ def create_argparser():
     parser.add_argument("--batch_size", type=int, default=None,
                         help="videos per I3D feature batch (default: the per-dataset table)")
     parser.add_argument("--dp_devices", type=int, default=1,
-                        help="shard each I3D feature batch over this many devices; only 1 "
-                             "is ported (ROADMAP A5)")
+                        help="shard each I3D feature batch over this many local devices "
+                             "(pick --batch_size a multiple)")
     parser.add_argument("--real_dir", type=str, default=None,
                         help="directory of sample-format uint8 .npy files to use as the REAL "
                              "side instead of the test dataset (e.g. VAE-roundtripped reals "
@@ -122,8 +123,6 @@ def main(argv=None):
     """Run the CLI on ``argv`` (default: the command line); returns the score
     (the one already written, when the output file exists)."""
     args = create_argparser().parse_args(argv)
-    if args.dp_devices != 1:
-        raise NotImplementedError("--dp_devices > 1 waits for data parallelism (ROADMAP A5)")
 
     eval_dir = Path(args.eval_dir)
     stride_sfx = f"-s{args.temporal_stride}" if args.temporal_stride != 1 else ""
@@ -137,10 +136,15 @@ def main(argv=None):
     dataset = args.dataset or config.get("dataset", "synthetic")
     T = args.T or config.get("T")
 
+    devices = None
+    if args.dp_devices > 1:
+        devices = make_eval_mesh(args.dp_devices, args.batch_size or BATCH_SIZES.get(dataset, 8),
+                                 args.device)
+
     score = compute_fvd(eval_dir, dataset, args.num_videos, args.sample_idx, T,
                         i3d_weights=args.i3d_weights, batch_size=args.batch_size,
                         real_dir=args.real_dir, temporal_stride=args.temporal_stride,
-                        device=args.device)
+                        device=args.device, devices=devices)
     out_path.write_text(f"{score}\n")
     print(f"FVD: {score} (saved to {out_path})")
     return score

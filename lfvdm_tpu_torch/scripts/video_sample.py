@@ -29,6 +29,7 @@ import torch
 from ..config import create_diffusion, create_model_and_diffusion, str2bool
 from ..data.datasets import get_test_dataset
 from ..diffusion.codecs import make_codec_from_config
+from ..parallel.mesh import make_eval_mesh
 from ..sampling.driver import VideoSampler
 from ..sampling.schemes import sampling_schemes
 from ..training import checkpoint as ckpt_lib
@@ -170,8 +171,9 @@ def create_argparser():
                         help="prefix of the converted SVD-VAE npz pair; defaults to "
                              "$LFVDM_VAE_WEIGHTS. Decodes latent-space checkpoints to pixels")
     parser.add_argument("--dp_devices", type=int, default=1,
-                        help="data-parallel sampling over this many devices; only 1 is "
-                             "ported (ROADMAP A5)")
+                        help="data-parallel sampling over this many local devices: each "
+                             "window's batch is split over them (pick --batch_size a "
+                             "multiple)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="the device to sample on: cuda (default) or cpu")
     return parser
@@ -208,10 +210,11 @@ def main(argv=None):
     the seconds spent sampling, ``sampling_s`` (None with
     ``--just_visualise``)."""
     args = create_argparser().parse_args(argv)
-    if args.dp_devices != 1:
-        raise NotImplementedError("--dp_devices > 1 waits for data parallelism (ROADMAP A5)")
     device = resolve_device(args.device)
     setup_distributed(device)
+    devices = None
+    if args.dp_devices > 1:
+        devices = make_eval_mesh(args.dp_devices, args.batch_size, device)
 
     if args.stop_index is None:
         task_id = int(os.environ.get("SLURM_ARRAY_TASK_ID", 0))
@@ -240,7 +243,7 @@ def main(argv=None):
 
     sampler = VideoSampler(model, diffusion, clip_denoised=args.clip_denoised,
                            use_ddim=args.use_ddim, use_dpm=args.use_dpm,
-                           encoder_reuse=args.encoder_reuse, codec=codec)
+                           encoder_reuse=args.encoder_reuse, codec=codec, devices=devices)
 
     optimal_schedule = None
     if args.optimality is not None:

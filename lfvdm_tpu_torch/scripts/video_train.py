@@ -9,6 +9,15 @@ norm stats of a pre-encoded dataset, the wavelet channels) and is embedded in
 every checkpoint, so sampling needs only the run directory. ``--init_from_pt``
 warm-starts from a reference ``.pt`` checkpoint whose config wins over the
 flags. Runs on the card unless ``--device cpu``.
+
+On several cards, launch one process per card:
+
+    torchrun --nproc_per_node N -m lfvdm_tpu_torch.scripts.video_train --fsdp F ...
+
+Every rank loads its own ``--batch_size`` rows; ``--fsdp 1`` trains with
+DDP, ``--fsdp F`` > 1 shards each parameter of at least ``--fsdp_min_size``
+elements over F ranks (FSDP2), replicated over the N / F groups. Rank 0's
+run id and checkpoint directory are every rank's.
 """
 
 from __future__ import annotations
@@ -84,7 +93,9 @@ def create_argparser():
 def resolve_run_identity(args) -> str:
     """The run id: ``--resume_id`` resumes that run (checkpoint dir
     checkpoints/<id>, wandb resume under the same id); a fresh run draws
-    one. The default checkpoint_dir is keyed by it, an explicit one wins."""
+    one, and in a group every rank takes rank 0's (the checkpoint path is
+    keyed by it). The default checkpoint_dir is keyed by it, an explicit one
+    wins."""
     import uuid
 
     default_dir = create_argparser().get_default("checkpoint_dir")
@@ -93,38 +104,23 @@ def resolve_run_identity(args) -> str:
         args.resume = True
     else:
         run_id = uuid.uuid4().hex[:8]
+        if process_index_and_count()[1] > 1:
+            import torch.distributed as dist
+
+            shared = [run_id]
+            dist.broadcast_object_list(shared, src=0)
+            run_id = shared[0]
     if args.checkpoint_dir == default_dir:
         args.checkpoint_dir = os.path.join("checkpoints", run_id)
     return run_id
-
-
-def _not_ported(args):
-    if args.fsdp != 1:
-        raise NotImplementedError("--fsdp > 1 waits for data parallelism (ROADMAP A5)")
-
-
-def _refuse_group():
-    """A group of more than one process would train that many unsynchronised
-    copies: every rank leaves the group (so none waits on another) and
-    raises."""
-    import torch.distributed as dist
-
-    rank, count = process_index_and_count()
-    if count > 1:
-        dist.destroy_process_group()
-        raise NotImplementedError(
-            f"rank {rank} of {count}: multi-process training waits for data parallelism "
-            "(ROADMAP A5); launch one process")
 
 
 def main(argv=None):
     """Run the CLI on ``argv`` (default: the command line); returns the
     ``TrainLoop`` after its run."""
     args = create_argparser().parse_args(argv)
-    _not_ported(args)
     device = resolve_device(args.device)
     setup_distributed(device)
-    _refuse_group()
     run_id = resolve_run_identity(args)
     if args.unobserve:
         os.environ["WANDB_MODE"] = "dryrun"
@@ -241,6 +237,8 @@ def main(argv=None):
         resume=args.resume,
         init_params=init_params,
         config=config,
+        fsdp=args.fsdp,
+        fsdp_min_size=args.fsdp_min_size,
         seed=args.seed,
         profile_dir=args.profile_dir or None,
         sample_fn=sample_fn,

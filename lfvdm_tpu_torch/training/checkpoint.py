@@ -11,7 +11,10 @@ Layout (``torch.save``, loaded with ``weights_only=True``):
   <dir>/<step>/ema_<rate>.pt        one file per EMA rate
   <dir>/<step>/train_state.pt       Adam moments, counts and step
 
-so that an eval loads one weight copy without reading the rest.
+so that an eval loads one weight copy without reading the rest. In a
+``torch.distributed`` group rank 0 writes (the state holds full tensors, the
+same on every rank) and every rank waits at a barrier; each rank reads the
+files itself on resume, so a run saved by N ranks resumes under any other.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import shutil
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..utils.device import process_index_and_count
 
 
 def _cpu(tree):
@@ -48,8 +53,18 @@ def _write_config(ckpt_dir: str, config: Optional[Dict]):
 def save_checkpoint(ckpt_dir: str, step: int, state: Dict[str, Any],
                     config: Optional[Dict] = None):
     """Save a train state at <ckpt_dir>/<step> (replacing one there); write
-    config.json beside it if there is none yet."""
-    ckpt_dir = os.path.abspath(ckpt_dir)
+    config.json beside it if there is none yet. In a group every rank calls
+    it: rank 0 writes, and all return once the files are in place."""
+    rank, count = process_index_and_count()
+    if rank == 0:
+        _write(os.path.abspath(ckpt_dir), step, state, config)
+    if count > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _write(ckpt_dir: str, step: int, state: Dict[str, Any], config: Optional[Dict]):
     os.makedirs(ckpt_dir, exist_ok=True)
     _write_config(ckpt_dir, config)
     final = os.path.join(ckpt_dir, str(step))

@@ -1,28 +1,37 @@
 """Training: the train step and the host loop (counterpart of
-lfvdm_tpu/training/train_loop.py), on one card.
+lfvdm_tpu/training/train_loop.py), on one card or one card per rank.
 
 The step is the JAX package's, run eagerly: q_sample, the U-Net forward and
-backward (its kernels launch in the forward; each kernel operator's
-backward is plain PyTorch), the weighted loss, AdamW with the
+backward (its kernels launch in the forward, and again in the backward for
+the blocks a ``use_checkpoint`` model rematerialises; each kernel
+operator's backward is plain PyTorch), the weighted loss, AdamW with the
 optional linear LR anneal, the multi-rate f32 EMA and the non-finite skip.
 The JAX step selects the old state on device when the gradient norm is not
 finite; here the norm is read on the host (one sync per step) and a skipped
 step touches neither the parameters, the Adam moments, the schedule count
-nor any EMA. Not ported yet: data parallelism across cards, remat, the
-``video_train`` CLI, and the JAX package's fused-optimizer and bf16-EMA
-diagnostics.
+nor any EMA.
+
+In a group of more than one process the loop wraps the model for data
+parallelism (``parallel/sharding.py``: DDP, or FSDP2 with ``fsdp`` > 1).
+The gradient norm is then the global one, so every rank takes the same
+skip decision; each rank's EMA follows its own parameters (under FSDP its
+shards); checkpoints and ``ema_params`` gather the full tensors. Not
+ported: the JAX package's fused-optimizer and bf16-EMA diagnostics, which
+measured TPU memory.
 
 The host loop keeps the JAX package's cadence: mask sampling on a numpy
 generator, timestep importance sampling with loss-aware updates, log, save
 and sample intervals with quartile loss KVs, the ``DIFFUSION_TRAINING_TEST``
 early exit, and a checkpoint at the next step boundary on SIGTERM/SIGINT.
 Device noise comes from a ``torch.Generator`` on the model's device, and the
-ResBlocks' dropout masks from a second one, both seeded from ``seed`` (the
-JAX step derives its dropout key from the run's key).
+ResBlocks' dropout masks from a second one, both seeded from ``seed`` plus
+the rank, as the host generator is (the JAX step derives its dropout key
+from the run's key), so the ranks draw different rows.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import os
@@ -36,6 +45,9 @@ from torch import nn
 from ..diffusion.gaussian import GaussianDiffusion
 from ..diffusion.resample import LossAwareSampler, ScheduleSampler, UniformSampler
 from ..models.unet import set_dropout_generator
+from ..parallel import sharding
+from ..parallel.mesh import best_mesh_shape, make_mesh
+from ..utils.device import any_rank, process_index_and_count
 from ..utils.logger import logger
 from . import checkpoint as ckpt_lib
 from .masks import sample_training_batch
@@ -53,8 +65,8 @@ def make_optimizer(params, lr: float, weight_decay: float, lr_anneal_steps: int 
     ``optax.adamw``) and, with ``lr_anneal_steps``, a ``LambdaLR`` that decays
     the LR linearly to 0, read at the count of updates made so far as optax's
     schedule is. Returns (optimizer, scheduler or None)."""
-    optimizer = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=weight_decay)
+    optimizer = torch.optim.AdamW([{"params": g} for g in _by_kind(params)], lr=lr,
+                                  betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
     scheduler = None
     if lr_anneal_steps:
         scheduler = torch.optim.lr_scheduler.LambdaLR(
@@ -64,8 +76,9 @@ def make_optimizer(params, lr: float, weight_decay: float, lr_anneal_steps: int 
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer and schedule, one f32 EMA copy per rate
-    ({param name: tensor}) and the number of steps taken (skipped included)."""
+    """The model (as the step runs it: plain, DDP or FSDP2), its optimizer and
+    schedule, one f32 EMA copy per rate ({param name: tensor}, laid out as
+    the parameter) and the number of steps taken (skipped included)."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
@@ -74,40 +87,47 @@ class TrainState:
     step: int = 0
 
     def named_params(self):
-        return list(self.model.named_parameters())
+        """(name, parameter) pairs, named as in the unwrapped model."""
+        return list(sharding.unwrap(self.model).named_parameters())
 
     def state_dict(self) -> dict:
-        """A plain dict of tensors keyed by parameter name (the checkpoint
-        format, and what ``utils.convert.train_state_from_jax`` builds)."""
+        """A plain dict of full tensors keyed by parameter name (the
+        checkpoint format, and what ``utils.convert.train_state_from_jax``
+        builds). Under FSDP2 every rank must call it: it gathers."""
+        full = sharding.full_tensor
         params, exp_avg, exp_avg_sq = {}, {}, {}
         count = 0
         for name, p in self.named_params():
-            params[name] = p.detach()
+            params[name] = full(p.detach())
             st = self.optimizer.state.get(p, {})
-            exp_avg[name] = st.get("exp_avg", torch.zeros_like(p)).detach()
-            exp_avg_sq[name] = st.get("exp_avg_sq", torch.zeros_like(p)).detach()
+            exp_avg[name] = full(st.get("exp_avg", torch.zeros_like(p)).detach())
+            exp_avg_sq[name] = full(st.get("exp_avg_sq", torch.zeros_like(p)).detach())
             if "step" in st:
                 count = int(st["step"])
         schedule = self.scheduler.last_epoch if self.scheduler is not None else count
-        return {"params": params, "ema": self.ema,
+        ema = {rate: {n: full(t) for n, t in copy.items()} for rate, copy in self.ema.items()}
+        return {"params": params, "ema": ema,
                 "adam": {"count": count, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq},
                 "schedule_count": int(schedule), "step": int(self.step)}
 
     def load_state_dict(self, state: dict):
-        """Copy a ``state_dict()`` (on any device) into this state."""
+        """Copy a ``state_dict()`` (full tensors on any device, the same on
+        every rank) into this state, each tensor laid out as its parameter."""
         named = self.named_params()
         if set(state["ema"]) != set(self.ema):
             raise ValueError(f"EMA rates {sorted(state['ema'])} != {sorted(self.ema)}")
         adam = state["adam"]
+        place = sharding.place_like
         with torch.no_grad():
             for name, p in named:
-                p.copy_(state["params"][name])
+                p.copy_(place(state["params"][name], p))
                 for rate in self.ema:
-                    self.ema[rate][name].copy_(state["ema"][rate][name])
+                    self.ema[rate][name].copy_(place(state["ema"][rate][name],
+                                                     self.ema[rate][name]))
                 self.optimizer.state[p] = {
                     "step": torch.tensor(float(adam["count"]), dtype=torch.float32),
-                    "exp_avg": adam["exp_avg"][name].to(p).clone(),
-                    "exp_avg_sq": adam["exp_avg_sq"][name].to(p).clone(),
+                    "exp_avg": place(adam["exp_avg"][name], p).clone(),
+                    "exp_avg_sq": place(adam["exp_avg_sq"][name], p).clone(),
                 }
         if self.scheduler is not None:
             count = int(state["schedule_count"])
@@ -120,8 +140,8 @@ class TrainState:
 
 def init_train_state(model: nn.Module, optimizer, scheduler, ema_rates) -> TrainState:
     """Fresh state: one f32 EMA copy of the parameters per rate, step 0."""
-    ema = {str(float(r)): {n: p.detach().float().clone() for n, p in model.named_parameters()}
-           for r in ema_rates}
+    named = list(sharding.unwrap(model).named_parameters())
+    ema = {str(float(r)): {n: p.detach().float().clone() for n, p in named} for r in ema_rates}
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler, ema=ema)
 
 
@@ -147,14 +167,24 @@ def micro_loss(model, diffusion: GaussianDiffusion, batch: Dict[str, torch.Tenso
     return (terms["loss"] * weights).mean(), terms
 
 
+def _by_kind(items, tensor_of=lambda x: x) -> List[list]:
+    """``items`` grouped by the kind of their tensor, in order. Under FSDP2 the
+    sharded parameters are DTensors and the replicated ones plain tensors,
+    which one foreach kernel (the optimizer's default on the card, the EMA's
+    everywhere) cannot take together."""
+    kinds: Dict[type, list] = {}
+    for x in items:
+        kinds.setdefault(type(tensor_of(x).detach()), []).append(x)
+    return list(kinds.values())
+
+
 def _ema_update(ema: Dict[str, Dict[str, torch.Tensor]], named):
-    names = [n for n, _ in named]
-    params = [p.detach() for _, p in named]
-    for rate, copy in ema.items():
-        r = float(rate)
-        e = [copy[n] for n in names]
-        torch._foreach_mul_(e, r)                    # e·r + p·(1 − r), in f32
-        torch._foreach_add_(e, params, alpha=1.0 - r)
+    for group in _by_kind([(n, p.detach()) for n, p in named], tensor_of=lambda x: x[1]):
+        for rate, copy in ema.items():
+            r = float(rate)
+            e = [copy[n] for n, _ in group]
+            torch._foreach_mul_(e, r)                    # e·r + p·(1 − r), in f32
+            torch._foreach_add_(e, [p for _, p in group], alpha=1.0 - r)
 
 
 def backward_microbatches(model, diffusion: GaussianDiffusion, batch: Dict[str, torch.Tensor],
@@ -165,9 +195,10 @@ def backward_microbatches(model, diffusion: GaussianDiffusion, batch: Dict[str, 
 
     The batch splits into ``n_microbatches`` equal chunks and each chunk's
     gradient of its own weighted mean loss is SUMMED (the reference's
-    accumulation). ``noise`` (x0's shape) is injected, else each chunk draws
-    its own from ``generator``. Returns (the summed loss, the per-element
-    terms of the whole batch), detached."""
+    accumulation); a wrapped model reduces gradients across ranks in the
+    last chunk's backward only. ``noise`` (x0's shape) is injected, else
+    each chunk draws its own from ``generator``. Returns (the summed loss,
+    the per-element terms of the whole batch), detached."""
     B = batch["x0"].shape[0]
     if B % n_microbatches:
         raise ValueError(f"batch {B} does not split into {n_microbatches} microbatches")
@@ -176,11 +207,12 @@ def backward_microbatches(model, diffusion: GaussianDiffusion, batch: Dict[str, 
     chunk_terms: List[Dict[str, torch.Tensor]] = []
     for i in range(n_microbatches):
         part = slice(i * mb, (i + 1) * mb)
-        loss_i, terms_i = micro_loss(
-            model, diffusion, {k: v[part] for k, v in batch.items()}, t[part], weights[part],
-            noise=None if noise is None else noise[part], generator=generator,
-            pad_with_random_frames=pad_with_random_frames, impl=impl)
-        loss_i.backward()
+        with sharding.grad_sync(model, i == n_microbatches - 1):
+            loss_i, terms_i = micro_loss(
+                model, diffusion, {k: v[part] for k, v in batch.items()}, t[part],
+                weights[part], noise=None if noise is None else noise[part],
+                generator=generator, pad_with_random_frames=pad_with_random_frames, impl=impl)
+            loss_i.backward()
         loss = loss + loss_i.detach()
         chunk_terms.append({k: v.detach() for k, v in terms_i.items()})
     return loss, {k: torch.cat([c[k] for c in chunk_terms]) for k in chunk_terms[0]}
@@ -190,12 +222,13 @@ def apply_gradients(state: TrainState):
     """The update from the accumulated ``.grad``: AdamW, the LR schedule and
     every EMA when the global gradient norm is finite, nothing otherwise.
     Clears the gradients and advances ``state.step`` either way. Returns
-    (the gradient norm, whether the update was made)."""
+    (the gradient norm over every rank, whether the update was made)."""
     named = state.named_params()
     for _, p in named:
         if p.grad is None:  # an unused parameter: a zero gradient, as in JAX
             p.grad = torch.zeros_like(p)
-    grad_norm = torch.nn.utils.get_total_norm([p.grad for _, p in named])
+    sharding.sync_replicated_grads(state.model)
+    grad_norm = sharding.global_grad_norm([p.grad for _, p in named])
     finite = bool(torch.isfinite(grad_norm))  # the step's one host sync
     if finite:
         state.optimizer.step()
@@ -243,6 +276,14 @@ class TrainLoop:
     """Host driver: data -> masks -> train step; logging, checkpoint and
     sampling cadence. The model's device is the training device.
 
+    ``mesh``, ``fsdp``, ``fsdp_min_size``: data parallelism, as the JAX
+    loop takes them. In a group of more than one process (or with a
+    ``mesh`` given) the model is wrapped by ``sharding.wrap_for_training``:
+    DDP with ``fsdp == 1``, FSDP2 over the (dp, fsdp) mesh with ``fsdp`` > 1,
+    parameters under ``fsdp_min_size`` elements replicated. A model that
+    arrives wrapped (``sharding.shard_model``) is trained as it is. Each
+    rank loads its own ``batch_size`` rows.
+
     ``init_params``: a ``state_dict`` to start from (a fine-tune; its names
     and shapes must match the model's). ``codec`` (``diffusion/codecs.py``)
     maps each prepared batch into diffusion space: ``VAECodec`` encodes the
@@ -274,6 +315,9 @@ class TrainLoop:
         resume: bool = False,
         init_params=None,
         config: Optional[Dict] = None,
+        mesh=None,
+        fsdp: int = 1,
+        fsdp_min_size: int = 2**16,
         seed: int = 0,
         sample_fn: Optional[Callable] = None,
         profile_dir: Optional[str] = None,
@@ -281,8 +325,8 @@ class TrainLoop:
         profile_num_steps: int = 5,
         codec=None,
     ):
-        self.model = model
         self.device = next(model.parameters()).device
+        self.rank, self.world = process_index_and_count()
         self.diffusion = diffusion
         self.data = data
         self.batch_size = batch_size
@@ -311,18 +355,37 @@ class TrainLoop:
         self._profiler = None
         self.ema_rates = ([ema_rate] if isinstance(ema_rate, float)
                           else [float(x) for x in str(ema_rate).split(",")])
+        best_mesh_shape(self.world, fsdp)  # refuses an fsdp size the group does not split into
+        if mesh is None and self.world > 1:
+            mesh = make_mesh(fsdp=fsdp, device_type=self.device.type)
+        # Each microbatch chunk must still cover the mesh's data shards: the
+        # global rows of a chunk are the local chunk's times the processes.
+        if mesh is not None and self.n_microbatches > 1:
+            global_chunk = (batch_size // self.n_microbatches) * self.world
+            if global_chunk % mesh.size():
+                raise ValueError(f"microbatch={microbatch} leaves {global_chunk} global rows per "
+                                 f"chunk, not divisible by the mesh's {mesh.size()} data "
+                                 "shards — raise microbatch or shrink the mesh")
+        self.mesh = mesh
+        seed += self.rank
         self.host_rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # A stream of its own for the dropout masks, derived from the seed.
         dropout_seed = int(np.random.SeedSequence([seed, 1]).generate_state(1, np.uint64)[0])
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(dropout_seed)
-        set_dropout_generator(model, self.dropout_generator)
 
+        self.model = model
         if init_params is not None:
             self._warm_start(init_params)
-        optimizer, scheduler = make_optimizer(model.parameters(), lr, weight_decay,
+        # The layout of a plain replica, for sampling in one process
+        # (``sampling_model``); none for a model that arrives sharded.
+        plain = sharding.unwrap(model)
+        self._skeleton = None if sharding.is_sharded(plain) else copy.deepcopy(plain).to("meta")
+        set_dropout_generator(model, self.dropout_generator)
+        self.model = sharding.wrap_for_training(model, mesh, fsdp, fsdp_min_size)
+        optimizer, scheduler = make_optimizer(self.model.parameters(), lr, weight_decay,
                                               lr_anneal_steps)
-        self.state = init_train_state(model, optimizer, scheduler, self.ema_rates)
+        self.state = init_train_state(self.model, optimizer, scheduler, self.ema_rates)
 
         self.step = 0
         self._pending = []
@@ -334,7 +397,7 @@ class TrainLoop:
                 saved, self.step, _ = ckpt_lib.load_checkpoint(checkpoint_dir, latest)
                 self.state.load_state_dict(saved)
                 print(f"resumed from step {self.step}")
-        logger.logkv("num_parameters", sum(p.numel() for p in model.parameters()))
+        logger.logkv("num_parameters", sum(p.numel() for p in self.model.parameters()))
 
     def _warm_start(self, init_params):
         own = self.model.state_dict()
@@ -417,7 +480,7 @@ class TrainLoop:
                 logger.logkv("skipped_nonfinite_step", step)
                 print(f"non-finite gradients at step {step}; step skipped")
             logger.logkv("step", step)
-            logger.logkv("samples", (step + 1) * self.batch_size)
+            logger.logkv("samples", (step + 1) * self.batch_size * self.world)
             logger.logkv_mean("timing/host_time", host_time)
         self._pending = []
         self._window_start = time.time()
@@ -481,7 +544,14 @@ class TrainLoop:
                 self.save()
             if os.environ.get("DIFFUSION_TRAINING_TEST", "") and self.step > 0:
                 return
-            if self._interrupted:
+            interrupted = self._interrupted
+            if self.world > 1:
+                # Signals reach the ranks at different steps; the ranks agree
+                # at the log boundary, so every one enters the save at the
+                # same step.
+                interrupted = (bool(self.log_interval) and self.step % self.log_interval == 0
+                               and any_rank(self._interrupted))
+            if interrupted:
                 self._flush_metrics()
                 self.save()
                 print(f"checkpointed at step {self.step} after interrupt; exiting")
@@ -501,10 +571,23 @@ class TrainLoop:
             self.save()
 
     def save(self):
+        """Every rank gathers the state; rank 0 writes it."""
         ckpt_lib.save_checkpoint(self.checkpoint_dir, self.step, self.state.state_dict(),
                                  config=self.config)
 
     @property
     def ema_params(self):
-        return self.state.ema
+        """{rate: {name: full tensor}}; under FSDP2 every rank must read it
+        (it gathers)."""
+        return {rate: {n: sharding.full_tensor(t) for n, t in c.items()}
+                for rate, c in self.state.ema.items()}
+
+    def sampling_model(self, params: Dict[str, torch.Tensor]) -> nn.Module:
+        """A plain replica of the model on the training device holding
+        ``params`` (full tensors), for sampling in this process alone."""
+        if self._skeleton is None:
+            raise ValueError("the model arrived sharded: no plain replica to sample with")
+        model = copy.deepcopy(self._skeleton).to_empty(device=self.device)
+        model.load_state_dict(params)
+        return model
 

@@ -7,8 +7,11 @@ with a red border, a gif per video. The sampler's noise comes from a
 ``torch.Generator`` seeded from ``seed`` on the loop's device. With
 ``log_attn`` the window is sampled by ``VideoSampler.sample_window_attn`` and
 its per-quartile attention heatmaps are saved as ``.npy`` beside the gifs.
-One process: the gather of the weights across processes waits for data
-parallelism (ROADMAP A5).
+
+In a ``torch.distributed`` group every rank takes part in the gather of the
+EMA weights (a collective under FSDP2); rank 0 alone samples, on a plain
+replica of the model, and writes; every rank then waits at a barrier (the
+reference's ``dist.barrier()`` after ``log_samples``).
 """
 
 from __future__ import annotations
@@ -43,22 +46,27 @@ def make_sample_fn(vis_batch: np.ndarray, *, ema_rate: str = None, out_dir: str 
                    seed: int = 0, log_attn: bool = False):
     """A ``TrainLoop.sample_fn`` that samples the vis batch with the EMA
     weights (``ema_rate``, default the largest saved) and, with ``out_dir``,
-    writes ``step<step>_video<i>.gif`` there and logs each path. The EMA
-    weights are copied into the loop's model for the window and the raw
-    ones put back after it. With ``log_attn`` the per-quartile attention
+    writes ``step<step>_video<i>.gif`` there and logs each path. The window
+    runs on ``loop.sampling_model``, a plain replica holding the EMA
+    weights. With ``log_attn`` the per-quartile attention
     heatmaps (reference gaussian_diffusion.py:448-469) are saved too, as
     ``step<step>_attn_q<q>-{temporal,spatial}.npy``. Returns the marked uint8
-    videos (B, K, C, H, W).
+    videos (B, K, C, H, W) on rank 0, None on the others.
     """
 
     def sample_fn(loop):
-        from ..sampling.driver import VideoSampler
-
-        if process_index_and_count()[1] > 1:
-            raise NotImplementedError("vis sampling across processes waits for data "
-                                      "parallelism (ROADMAP A5)")
+        rank, count = process_index_and_count()
         rate = ema_rate or sorted(loop.state.ema.keys())[-1]
-        ema = loop.state.ema[rate]
+        ema = loop.ema_params[rate]  # every rank: under FSDP2 this gathers
+        vids = _sample(loop, loop.sampling_model(ema)) if rank == 0 else None
+        if count > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
+        return vids
+
+    def _sample(loop, model):
+        from ..sampling.driver import VideoSampler
 
         B, T = vis_batch.shape[:2]
         with RNG(seed):
@@ -75,24 +83,14 @@ def make_sample_fn(vis_batch: np.ndarray, *, ema_rate: str = None, out_dir: str 
         obs_t = torch.as_tensor(obs_m, device=dev)
         lat_t = torch.as_tensor(lat_m, device=dev)
 
-        named = dict(loop.model.named_parameters())
-        raw = {n: p.detach().clone() for n, p in named.items()}
-        try:
-            with torch.no_grad():
-                for n, p in named.items():
-                    p.copy_(ema[n])
-            sampler = VideoSampler(loop.model, loop.diffusion)
-            generator = torch.Generator(device=dev).manual_seed(seed)
-            if log_attn:
-                local, attns = sampler.sample_window_attn(batch, fi, obs_m, lat_m,
-                                                          generator=generator)
-            else:
-                local = sampler.sample_window(batch, fi, obs_m, lat_m, generator=generator)
-                attns = {}
-        finally:
-            with torch.no_grad():
-                for n, p in named.items():
-                    p.copy_(raw[n])
+        sampler = VideoSampler(model, loop.diffusion)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        if log_attn:
+            local, attns = sampler.sample_window_attn(batch, fi, obs_m, lat_m,
+                                                      generator=generator)
+        else:
+            local = sampler.sample_window(batch, fi, obs_m, lat_m, generator=generator)
+            attns = {}
         composite = local * lat_t + batch * obs_t
         if loop.codec is not None:
             composite = loop.codec.decode(composite)

@@ -63,6 +63,28 @@ def process_index_and_count():
     return 0, 1
 
 
+def collective_device() -> torch.device:
+    """Where a collective's tensors must live: the current card under
+    ``nccl``, the CPU under ``gloo``."""
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def any_rank(flag: bool) -> bool:
+    """Whether ``flag`` is true on any rank of the group (every rank must
+    call it at the same point); ``flag`` itself in one process."""
+    import torch.distributed as dist
+
+    if process_index_and_count()[1] == 1:
+        return flag
+    t = torch.tensor([float(flag)], device=collective_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 @contextlib.contextmanager
 def full_f32():
     """Inside, cuDNN convolutions and cuBLAS matrix products on the card run

@@ -18,7 +18,7 @@ import os
 import time
 from typing import Optional
 
-from .device import process_index_and_count
+from .device import collective_device, process_index_and_count
 
 
 def mpi_weighted_mean(local_name2valcount: dict) -> dict:
@@ -32,9 +32,7 @@ def mpi_weighted_mean(local_name2valcount: dict) -> dict:
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, sorted(local_name2valcount))
     names = sorted(set().union(*gathered))
-    device = (torch.device("cuda", torch.cuda.current_device())
-              if dist.get_backend() == "nccl" else torch.device("cpu"))
-    sums = torch.zeros(len(names), 2, dtype=torch.float64, device=device)
+    sums = torch.zeros(len(names), 2, dtype=torch.float64, device=collective_device())
     for i, name in enumerate(names):
         if name in local_name2valcount:
             val, count = local_name2valcount[name]

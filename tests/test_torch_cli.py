@@ -206,7 +206,10 @@ def test_just_visualise_png_equals_jax_script(pt64, tmp_path, monkeypatch):
 
 
 def test_unported_sources_and_flags_raise_naming_the_roadmap(pt64, tmp_path):
-    with pytest.raises(NotImplementedError, match="A5"):
+    """The JAX orbax run directory names A8; ``--dp_devices 2`` on the CPU
+    (one device) and ``--fsdp 2`` in one process raise the JAX package's
+    refusals."""
+    with pytest.raises(ValueError, match=r"^--dp_devices 2 > 1 visible devices$"):
         video_sample.main([pt64] + SAMPLE_ARGS + ["--dp_devices", "2"])
     (tmp_path / "params.msgpack").write_bytes(b"")  # read now: an empty file is unreadable
     with pytest.raises(ValueError, match="truncated msgpack"):
@@ -214,8 +217,8 @@ def test_unported_sources_and_flags_raise_naming_the_roadmap(pt64, tmp_path):
     (tmp_path / "orbax" / "100" / "default").mkdir(parents=True)  # a JAX run's step
     with pytest.raises(SystemExit, match="A8.*export_params.py.*msgpack"):
         video_sample.main([str(tmp_path / "orbax")] + SAMPLE_ARGS)
-    with pytest.raises(NotImplementedError, match="A5"):
-        video_train.main(TRAIN_ARGS + ["--fsdp", "2"])
+    with pytest.raises(ValueError, match=r"^1 devices not divisible by fsdp=2$"):
+        video_train.main(TRAIN_ARGS + ["--fsdp", "2", "--checkpoint_dir", str(tmp_path / "run")])
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")

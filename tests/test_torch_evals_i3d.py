@@ -189,7 +189,8 @@ def test_compute_fvd_matches_jax_script(i3d_npz, tmp_path, monkeypatch):
 def test_video_fvd_main_matches_jax_script(i3d_npz, tmp_path, monkeypatch):
     """``--real_dir`` and ``--temporal_stride 2`` with a zero-padded last
     batch: the same ``fvd-3-0-s2.txt`` name and score as the JAX script, a
-    second run reads the file back, and ``--dp_devices 2`` names A5."""
+    second run reads the file back, and ``--dp_devices 2`` on a host with one
+    device (the CPU) raises the JAX script's refusal."""
     for which in ("port", "jax"):
         _synthetic_samples(tmp_path / which / "samples", 3, 8, 32, seed=7)
         (tmp_path / which / "model_config.json").write_text(json.dumps({"dataset": "x", "T": 8}))
@@ -210,9 +211,21 @@ def test_video_fvd_main_matches_jax_script(i3d_npz, tmp_path, monkeypatch):
     stamp = (tmp_path / "port" / "fvd-3-0-s2.txt").stat().st_mtime_ns
     assert video_fvd.main(["--eval_dir", str(tmp_path / "port"), "--device", "cpu"] + argv) == got
     assert (tmp_path / "port" / "fvd-3-0-s2.txt").stat().st_mtime_ns == stamp
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match=r"^--dp_devices 2 > 1 visible devices$"):
         video_fvd.main(["--eval_dir", str(tmp_path / "port"), "--dp_devices", "2",
-                        "--device", "cpu"])
+                        "--device", "cpu"] + argv[2:])
+
+
+def test_features_split_over_two_devices(i3d_npz):
+    """``devices=[cpu, cpu]``: one replica per device, each taking its block
+    of rows: the one-device features of each block, bitwise; a batch the
+    devices do not divide runs on the first."""
+    clips = np.random.default_rng(11).uniform(-1, 1, (3, 8, 224, 224, 3)).astype(np.float32)
+    one = I3DFeatureExtractor(i3d_npz, device="cpu")
+    two = I3DFeatureExtractor(i3d_npz, devices=[torch.device("cpu")] * 2)
+    assert len(two.replicas) == 2 and two.replicas[1] is not two.module
+    np.testing.assert_array_equal(two(clips[:2]), np.concatenate([one(clips[:1]), one(clips[1:2])]))
+    np.testing.assert_array_equal(two(clips), one(clips))
 
 
 def test_real_dataset_name_equals_jax_script():

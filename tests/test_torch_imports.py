@@ -8,8 +8,9 @@ card's machine: the port reads and writes flax's files itself); and the
 latent slice's modules, the entry points and their data, checkpoint and
 logging modules, the LPIPS embedder, the optimal-schedule script, the evals
 (FVD, I3D, the CARLA regressor) with their four scripts, and the serving
-module, the msgpack reader and writer and the two export scripts imported in
-a fresh interpreter where those names cannot be found.
+module, the msgpack reader and writer, the two export scripts and the
+parallel package (meshes and sharding) imported in a fresh interpreter where
+those names cannot be found.
 """
 
 import ast
@@ -61,7 +62,9 @@ def test_scan_covers_the_package():
                      "lfvdm_tpu_torch/scripts/carla_regressor_train.py",
                      "lfvdm_tpu_torch/serving.py", "lfvdm_tpu_torch/utils/msgpack.py",
                      "lfvdm_tpu_torch/scripts/export_sampler.py",
-                     "lfvdm_tpu_torch/scripts/export_params.py", "chip_smoke.py"):
+                     "lfvdm_tpu_torch/scripts/export_params.py",
+                     "lfvdm_tpu_torch/parallel/__init__.py", "lfvdm_tpu_torch/parallel/mesh.py",
+                     "lfvdm_tpu_torch/parallel/sharding.py", "chip_smoke.py"):
         assert expected in names
 
 
@@ -103,6 +106,7 @@ import lfvdm_tpu_torch.scripts.video_fvd, lfvdm_tpu_torch.scripts.video_to_world
 import lfvdm_tpu_torch.scripts.video_make_mp4, lfvdm_tpu_torch.scripts.carla_regressor_train
 import lfvdm_tpu_torch.serving, lfvdm_tpu_torch.utils.msgpack
 import lfvdm_tpu_torch.scripts.export_sampler, lfvdm_tpu_torch.scripts.export_params
+import lfvdm_tpu_torch.parallel, lfvdm_tpu_torch.parallel.mesh, lfvdm_tpu_torch.parallel.sharding
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")

@@ -2,7 +2,10 @@
 
 The tiny flagship config in f32. The JAX side runs its fused up-path skip
 projection (``LFVDM_PALLAS_SKIPCONV=xla``, set only inside the module fixture
-that traces it), as the port does by default. Weights, batch, timesteps,
+that traces it), as the port does by default, and rematerialises its blocks
+(``use_checkpoint=True``, which moves no gradient by more than 4e-9 there),
+so one compiled step is the reference of the port's step with and without
+remat. Weights, batch, timesteps,
 importance weights and noise are numpy arrays handed to both packages; the
 JAX parameters reach the port through ``utils/convert.py``.
 """
@@ -98,7 +101,7 @@ def ref():
     batch2, t2, w2, noise2 = make_batch(1)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("LFVDM_PALLAS_SKIPCONV", "xla")
-        jmodel, jdiff = j_create(CFG)
+        jmodel, jdiff = j_create(dict(CFG, use_checkpoint=True))
         params = jax_params()
 
         def loss_fn(params, batch, t, w, noise):
@@ -138,8 +141,8 @@ def ref():
                 state1=to_np(state1), state2=to_np(state2), loss2=float(loss2), g2=to_np(g2))
 
 
-def port_state(params_tree):
-    model, diffusion = t_create(CFG, device="cpu")
+def port_state(params_tree, **config):
+    model, diffusion = t_create(dict(CFG, **config), device="cpu")
     model.load_state_dict({k: torch.from_numpy(v) for k, v in flat(params_tree).items()})
     optimizer, scheduler = make_optimizer(model.parameters(), LR, WD)
     return init_train_state(model, optimizer, scheduler, RATES), diffusion
@@ -164,6 +167,19 @@ def test_loss_and_gradients_match_jax(ref):
         np.testing.assert_allclose(terms[k].numpy(), ref["terms1"][k], rtol=1e-5, atol=1e-7)
     assert_trees_close(grads_of(state.model), flat(ref["g1"]), rtol=1e-4, atol_rel=1e-4)
     assert sum(ops.launch_counts().values()) == 0
+
+
+def test_remat_loss_and_gradients_match_jax(ref):
+    """``use_checkpoint=True``: each block's forward runs again in the
+    backward (its kernels launch twice), and the step is JAX's remat step."""
+    state, diffusion = port_state(ref["params"], use_checkpoint=True)
+    batch, t, w, noise = step_inputs(ref)
+    loss, _ = backward_microbatches(state.model, diffusion, batch, t, w, noise=noise)
+    np.testing.assert_allclose(loss.item(), ref["loss1"], rtol=1e-5, atol=0)
+    got, want = grads_of(state.model), flat(ref["g1"])
+    diff = np.sqrt(sum(np.square(got[k] - want[k]).sum() for k in want))
+    assert diff <= 1e-5 * np.sqrt(sum(np.square(v).sum() for v in want.values()))
+    assert_trees_close(got, want, rtol=1e-4, atol_rel=1e-4)
 
 
 def set_grads(model, tree):

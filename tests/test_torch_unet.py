@@ -19,7 +19,8 @@ from lfvdm_tpu.utils.torch_convert import convert_unet_state_dict
 from lfvdm_tpu_torch.config import CHANNEL_MULT_BY_IMAGE_SIZE, create_model, flagship_config
 from lfvdm_tpu_torch.config import create_model_and_diffusion as t_create
 from lfvdm_tpu_torch.models.nn import GroupNorm32, channel_sums
-from lfvdm_tpu_torch.models.unet import attention_blocks, fused_skip_blocks
+from lfvdm_tpu_torch.models.unet import (FactorizedAttentionBlock, ResBlock, attention_blocks,
+                                         fused_skip_blocks)
 from lfvdm_tpu_torch.ops import attention as ops
 from lfvdm_tpu_torch.utils.convert import unet_state_dict_from_jax
 
@@ -213,8 +214,10 @@ def test_fused_config_key():
     cfg = dict(CFG, fused_skip_conv=False)
     model, _ = t_create(cfg, device="cpu")
     assert not model.fused_skip_conv and fused_skip_blocks(model) == 8
-    with pytest.raises(NotImplementedError):
-        t_create(dict(CFG, use_checkpoint=True), device="cpu")
+    remat, _ = t_create(dict(CFG, use_checkpoint=True), device="cpu")
+    blocks = [m for m in remat.modules() if isinstance(m, (ResBlock, FactorizedAttentionBlock))]
+    assert len(blocks) == 18 and all(b.use_checkpoint for b in blocks)
+    assert not any(getattr(m, "use_checkpoint", False) for m in model.modules())
 
 
 def test_channel_sums_and_precomputed_group_norm_match_jax():
