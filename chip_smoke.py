@@ -35,7 +35,10 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                video (autoreg, 3 windows of K=20, ancestral, 50 steps), then one
                DDIM (ddim25) and one DPM-Solver++ (dpm20) window. Launch counts
                are reset just before and read just after; each must equal
-               7 + 7 + 10 per model call, on the same routes.
+               7 + 7 + 10 per model call, on the same routes. Every sampling
+               phase samples captured (VideoSampler's default: a CUDA graph of
+               one reverse step per window shape, replayed once per step; the
+               replays add the launches their capture recorded).
   5b. reuse  — encoder reuse and the heatmap sampler on the flagship model
                (phase_reuse): a. a 20-frame video of one window through
                VideoSampler(encoder_reuse=3), ancestral with 50 steps (17 full
@@ -66,6 +69,20 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                directory (phase_serve_params): export_params writes the EMA
                weights as a flax .msgpack, and video_sample's loader reads it
                into a U-Net whose output equals the run directory's, bitwise.
+  5d. graphs — captured windows against the eager loops (graphs=False) in
+               the same call (phase_graphs; the latent case in phase 8): on
+               the flagship an ancestral (50), DDIM (ddim25, eta 0),
+               DPM-Solver++ (dpm20) and encoder-reuse (k = 3, 50 steps)
+               window, on the latent config its 20-frame video with the
+               pre-encoded codec: captured vs eager bitwise (else relative L2
+               <= 5e-3), ms per model call both ways (CUDA events and wall, in
+               turns), launches per call from the replay counters (7 + 7 + 10,
+               reuse 4 + 4 + 10, latent 7 + 7 + 8), capture seconds per shape,
+               the pool's bytes and the peak; a ddim25 (flagship) and ddim10
+               (latent) window's device busy time and idle share, eager and
+               captured, from the profiler, which must name each kernel
+               inside the replays. Phase 9's vis sampling must leave no pool
+               reserved, against a control that holds its sampler.
   6. train   — the training path: TrainLoop on the flagship config (B=2, K=20,
                bf16) over the synthetic dataset at 128 px (prefetched on a
                thread): warm-up steps, then timed steps (finite losses,
@@ -1124,6 +1141,143 @@ def phase_reuse(cfg, model, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: captured windows (CUDA graphs) against the eager loops
+# ---------------------------------------------------------------------------
+
+# Flagship cases: name -> (respacing, VideoSampler options).
+GRAPH_CASES = {"ancestral": ("50", {}),
+               "ddim": ("ddim25", dict(use_ddim=True, eta=0.0)),
+               "dpm": ("dpm20", dict(use_dpm=True)),
+               "reuse": (REUSE_RESPACING, dict(encoder_reuse=REUSE_K))}
+GRAPH_TURNS = 2  # timed turns per side (A, B, B, A), after a warm-up call each
+GRAPH_PROFILE_RESPACING = "ddim25"  # the flagship window profiled eager and captured
+
+
+def _mem():
+    """Device bytes allocated, and reserved by the caching allocator."""
+    import torch
+
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _graphs_case(label, make, run, calls_per_run, per_call_check):
+    """One case of the graphs phase: ``make(graphs)`` builds a sampler,
+    ``run(sampler)`` samples once and returns the result. The captured
+    sampler's first run (which captures), its memory and launches; the eager
+    run of the same seed, bitwise or its relative L2 (band 5e-3); the
+    launches of a run of replays alone; ms per model call both ways in turns.
+    ``per_call_check(launches, routes, sampler)`` holds the launches to the
+    per-call counts. Returns the row and the replay run's counts."""
+    import torch
+
+    from lfvdm_tpu_torch.ops import attention as ops
+
+    captured, eager = make(True), make(False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # as each capture does, so that reserved bytes compare
+    mem0 = _mem()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = run(captured)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = read_counts()
+    per_call_check(*first, captured)  # the warm-up steps counted, the captures not
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()  # what stays reserved is the pool's and the buffers'
+    mem1 = _mem()
+    want = run(eager)
+    captured.model_calls = captured.reuse_calls = 0
+    ops.reset_launch_counts()
+    again = run(captured)
+    torch.cuda.synchronize()
+    launches, routes = read_counts()
+    per_call_check(launches, routes, captured)
+    times = _event_and_wall_ms_in_turns({"eager": lambda: run(eager),
+                                         "captured": lambda: run(captured)}, GRAPH_TURNS)
+    got, want, again = (torch.as_tensor(a).float() for a in (got, want, again))
+    programs = list(captured._programs.values())
+    row = {"phase": "graphs", "case": label, "model_calls_per_run": calls_per_run,
+           "bitwise": bool(torch.equal(got, want)), "rel_l2": _rel_l2_tensors(got, want),
+           "replay_bitwise": bool(torch.equal(again, got)),
+           "programs": [[list(p.shape), sorted(p.graphs)] for p in programs],
+           "capture_s": [p.capture_s for p in programs], "first_run_s": first_s,
+           "launches_per_call": {k: v / calls_per_run for k, v in launches.items()},
+           "routes": routes,
+           "replay_deltas": [{kind: {f"{n}:{r}" if r else n: c for (n, r), c in d.items() if c}
+                              for kind, d in p.deltas.items()} for p in programs],
+           "ms_per_call": {side: {kind: [x / calls_per_run for x in v] for kind, v in t.items()}
+                           for side, t in times.items()},
+           "pool_allocated_bytes": mem1[0] - mem0[0], "pool_reserved_bytes": mem1[1] - mem0[1],
+           "peak_mem_gib": peak / 2**30}
+    emit(row)
+    if not (torch.isfinite(got).all() and row["replay_bitwise"]):
+        raise RuntimeError(f"graphs {label}: not finite, or a replay differs from the first run")
+    if not row["bitwise"] and not row["rel_l2"] <= 5e-3:
+        raise RuntimeError(f"graphs {label}: captured vs eager relative L2 {row['rel_l2']} > 5e-3")
+    return row, (launches, routes)
+
+
+def phase_graphs(cfg, model, card):
+    """Captured windows against the eager loops on the flagship (128 px,
+    B=2, K=20, bf16): the ancestral (50 steps), DDIM (ddim25, eta 0),
+    DPM-Solver++ (dpm20) and encoder-reuse (k = 3, 50 steps) windows, each
+    captured vs eager (bitwise, else relative L2 <= 5e-3), ms per model call
+    both ways (CUDA events and wall, in turns), launches per call from the
+    replay counters (7 + 7 + 10, a reuse call 4 + 4 + 10, on "mma"/"bulk"),
+    capture seconds per shape and the pool's bytes; then the device busy
+    time and idle share of a ddim25 window eager and captured, from the
+    profiler, with the port kernels it named inside the replays."""
+    import torch
+
+    from lfvdm_tpu_torch.config import create_diffusion
+    from lfvdm_tpu_torch.sampling.driver import VideoSampler
+
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    _, _, kw = window_inputs(cfg, "cuda", gen)
+    args = (kw["x0"], kw["frame_indices"], kw["obs_mask"], kw["latent_mask"])
+    counts = {}
+    for name, (spacing, opts) in GRAPH_CASES.items():
+        diff = create_diffusion(dict(cfg, timestep_respacing=spacing))
+        steps = diff.num_timesteps
+
+        def check(launches, routes, sampler, steps=steps):
+            if sampler.model_calls != steps:
+                raise RuntimeError(f"graphs {name}: {sampler.model_calls} calls, not {steps}")
+            reuse = sampler.reuse_calls
+            if name == "reuse":
+                _check_launches(launches, routes, 1, mixed_counts(steps - reuse, reuse))
+            else:
+                _check_launches(launches, routes, steps)
+
+        def run(sampler):
+            return sampler.sample_window(*args,
+                                         generator=torch.Generator(device="cuda").manual_seed(71))
+
+        _, counts[f"graphs_{name}"] = _graphs_case(
+            f"flagship_{name}", lambda graphs: VideoSampler(model, diff, graphs=graphs, **opts),
+            run, steps, check)
+    for graphs in (False, True):
+        prof = _profile_window(cfg, model, *args[:3], gen, spacing=GRAPH_PROFILE_RESPACING,
+                               graphs=graphs)
+        prof.update(phase="graphs_profile", path="flagship", card=card)
+        emit(prof)
+        _check_replayed_kernels(prof)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _check_replayed_kernels(prof):
+    """A captured window's profile must name each port kernel on the device:
+    the launch counts a replay adds stand for kernels the profiler saw."""
+    seen = prof["kernels_seen_ms_per_call"]
+    if prof["graphs"] and not all(seen.values()):
+        raise RuntimeError(f"graphs {prof['path']}: the profiler saw no replayed launch of "
+                           f"{[name for name, ms in seen.items() if not ms]} ({seen})")
+
+
+# ---------------------------------------------------------------------------
 # Phase 5c: the exported window sampler
 # ---------------------------------------------------------------------------
 
@@ -1385,9 +1539,12 @@ def _host_syncs(prof, per):
     return counts
 
 
-def _profile_window(cfg, model, x0, fi, obs, gen, spacing="ddim10"):
+def _profile_window(cfg, model, x0, fi, obs, gen, spacing="ddim10", graphs=True):
     """Device-busy time per model call of a DDIM window under torch.profiler,
-    beside the same window's wall time per call without it."""
+    beside the same window's wall time per call without it; captured (one
+    CUDA graph replay per step) unless ``graphs`` is False. ``kernels_seen``:
+    the port kernels the profiler named on the device (inside the replays
+    when captured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1395,8 +1552,10 @@ def _profile_window(cfg, model, x0, fi, obs, gen, spacing="ddim10"):
     from lfvdm_tpu_torch.sampling.driver import VideoSampler
 
     s = VideoSampler(model, create_diffusion(dict(cfg, timestep_respacing=spacing)),
-                     use_ddim=True, eta=0.0)
+                     use_ddim=True, eta=0.0, graphs=graphs)
+    s.sample_window(x0, fi, obs, 1 - obs, generator=gen)  # captures when graphs
     torch.cuda.synchronize()
+    s.model_calls = 0
     t0 = time.perf_counter()
     s.sample_window(x0, fi, obs, 1 - obs, generator=gen)
     torch.cuda.synchronize()
@@ -1405,10 +1564,15 @@ def _profile_window(cfg, model, x0, fi, obs, gen, spacing="ddim10"):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         s.sample_window(x0, fi, obs, 1 - obs, generator=gen)
         torch.cuda.synchronize()
-    busy = sum(device_kernels_ms(prof, calls).values())
-    return {"phase": "sample_profile", "respacing": spacing, "model_calls": calls,
-            "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy,
-            "idle_share": 1 - busy / wall_ms, "host_syncs_per_call": _host_syncs(prof, calls)}
+    per_kernel = device_kernels_ms(prof, calls)
+    busy = sum(per_kernel.values())
+    seen = {name: sum(ms for k, ms in per_kernel.items() if f"{name}_" in k)
+            for name in KERNEL_NAMES}
+    return {"phase": "sample_profile", "respacing": spacing, "graphs": graphs,
+            "model_calls": calls, "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy,
+            "idle_share": 1 - busy / wall_ms if busy else None,
+            "kernels_seen_ms_per_call": seen,
+            "host_syncs_per_call": _host_syncs(prof, calls)}
 
 
 def _check_video(samples, video, n_obs, used, T):
@@ -2263,6 +2427,52 @@ def phase_latent_sample(cfg, model, diffusion, vae, card):
     return launches, routes
 
 
+def phase_graphs_latent(cfg, model, diffusion, vae, card):
+    """The graphs phase on the latent config: its 20-frame video (autoreg,
+    n_obs 2, max_frames 5, ancestral, 50 steps, as phase 8b samples it) with
+    the pre-encoded codec, captured against eager (bitwise, else relative L2
+    <= 5e-3 on the decoded video), ms per model call both ways (each run
+    includes the one decode), 7 + 7 + 8 launches per call from the replay
+    counters on the rules' routes; then a latent window's (ddim10) device
+    busy time and idle share eager and captured, from the profiler."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.diffusion.codecs import PreEncodedLatentCodec
+    from lfvdm_tpu_torch.sampling.driver import VideoSampler
+
+    B, T, C, S = LATENT_B, LATENT_VIDEO_T, cfg["in_channels"], cfg["image_size"]
+    video = np.random.default_rng(21).standard_normal((B, T, C, S, S)).astype(np.float32)
+    codec = PreEncodedLatentCodec(*latent_stats(), vae=vae)
+    args = dict(scheme_name="autoreg", n_obs=2, max_frames=LATENT_K, step_size=2)
+    _, used = VideoSampler(model, diffusion).sample_video(
+        video, generator=torch.Generator(device="cuda"), just_get_indices=True, **args)
+    calls = len(used) * diffusion.num_timesteps
+
+    def check(launches, routes, sampler):
+        if sampler.model_calls != calls:
+            raise RuntimeError(f"graphs latent: {sampler.model_calls} calls, not {calls}")
+        _check_launches(launches, routes, calls, LATENT_PER_FORWARD, latent_route_counts(_sms()))
+
+    def run(sampler):
+        return sampler.sample_video(video, generator=torch.Generator(device="cuda").manual_seed(22),
+                                    **args)[0]
+
+    _, counts = _graphs_case(
+        "latent_ancestral_video", lambda graphs: VideoSampler(model, diffusion, codec=codec,
+                                                              graphs=graphs),
+        run, calls, check)
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    _, _, kw = window_inputs(cfg, "cuda", gen, **LATENT_WINDOW)
+    for graphs in (False, True):
+        prof = _profile_window(cfg, model, kw["x0"], kw["frame_indices"], kw["obs_mask"], gen,
+                               graphs=graphs)
+        prof.update(phase="graphs_profile", path="latent", card=card)
+        emit(prof)
+        _check_replayed_kernels(prof)
+    return counts
+
+
 def _sms():
     from lfvdm_tpu_torch.ops import skipconv
 
@@ -2386,12 +2596,13 @@ def phase_latent(ckpt_root, card):
     with torch_tf32_defaults():
         vae = SVDVae(seed=0, device="cuda")
         sample = phase_latent_sample(cfg, model, diffusion, vae, card)
+        graphs = phase_graphs_latent(cfg, model, diffusion, vae, card)
         del model
         phase_vae_cpu(vae, card)
         train = phase_latent_train(ckpt_root, vae, card)
     del vae
     torch.cuda.empty_cache()
-    return {"latent_sample": sample, "latent_train": train}
+    return {"latent_sample": sample, "latent_train": train, "graphs_latent_video": graphs}
 
 # ---------------------------------------------------------------------------
 # Phase 9: the entry points — the video_sample and video_train CLIs
@@ -2613,16 +2824,37 @@ def phase_cli(ckpt_root, card):
             state=loop.state, max_frames=FLAGSHIP_K, codec=loop.codec, device=loop.device,
             step=loop.step, ema_params=loop.ema_params, sampling_model=loop.sampling_model)
         ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()  # reserved bytes then count live blocks' segments only
+        mem_before = _mem()
+        torch.cuda.reset_peak_memory_stats()
         vids = make_sample_fn(vis_batch, out_dir=os.path.join(run_dir, "vis") if gifs else None,
                               seed=0)(view)
         torch.cuda.synchronize()
+        vis_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        mem_after = _mem()
         launches, routes = read_counts()
         counts["cli_vis"] = (launches, routes)
+        held = _reserved_by_held_vis_sampler(vis_batch, view)
         written = sorted(os.listdir(os.path.join(run_dir, "vis"))) if gifs else []
         emit({"phase": "cli_vis", "card": card, "pil": gifs, "gifs": written,
               "videos": list(vids.shape), "launches": launches, "routes": routes,
+              "train_peak_gib": train_peak / 2**30, "vis_peak_gib": vis_peak / 2**30,
+              "allocated_before_gib": mem_before[0] / 2**30,
+              "allocated_after_gib": mem_after[0] / 2**30,
+              "reserved_before_gib": mem_before[1] / 2**30,
+              "reserved_after_gib": mem_after[1] / 2**30,
+              "held_sampler_reserved_gib": held / 2**30,
               "note": None if gifs else "PIL is absent: make_sample_fn ran with out_dir=None"})
         _check_launches(launches, routes, 25)
+        if mem_after[1] - mem_before[1] >= VIS_HELD_LIMIT:
+            raise RuntimeError(f"vis sampling left {mem_after[1] - mem_before[1]} bytes reserved: "
+                               "a captured window's pool or buffers held")
+        if held < 4 * VIS_HELD_LIMIT:
+            raise RuntimeError(f"a held vis sampler kept {held} bytes reserved: the limit "
+                               f"{VIS_HELD_LIMIT} is not well under one pool")
         if gifs and len(written) != FLAGSHIP_B:
             raise RuntimeError(f"vis sampling wrote {written}")
 
@@ -2655,6 +2887,45 @@ def phase_cli(ckpt_root, card):
     return counts
 
 
+# What vis sampling may leave reserved: the schedule tables on its diffusion
+# and a stream's library workspaces, not a window's buffers and graph pool
+# (~GiB at the flagship's shape; phase 5d prints it). The control
+# (_reserved_by_held_vis_sampler) must keep at least 4x this.
+VIS_HELD_LIMIT = 256 * 2**20
+
+
+def _reserved_by_held_vis_sampler(vis_batch, view):
+    """The control of the vis check: the bytes that stay reserved when vis
+    sampling's sampler is deliberately held (kept past the call with its
+    programs, graphs and pool), after the caching allocator's free blocks
+    are returned. The sampler is released before this returns."""
+    import torch
+
+    from lfvdm_tpu_torch.sampling import driver
+    from lfvdm_tpu_torch.training.vis_sampling import make_sample_fn
+
+    held, real = [], driver.VideoSampler
+
+    class Held(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            held.append(self)
+
+    driver.VideoSampler = Held
+    try:
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        make_sample_fn(vis_batch, seed=0)(view)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kept = torch.cuda.memory_reserved() - before
+        if len(held) != 1:
+            raise RuntimeError(f"vis sampling made {len(held)} samplers, not 1")
+    finally:
+        driver.VideoSampler = real
+        held.clear()
+        torch.cuda.empty_cache()
+    return kept
 CLI_REUSE = dict(T=40, n_obs=10, scheme="autoreg", respacing=REUSE_RESPACING)
 CLI_ADAPTIVE = dict(T=40, n_obs=10, scheme="adaptive-autoreg", respacing="ddim25")
 
@@ -3028,6 +3299,7 @@ def main() -> int:
     phase_profile(cfg, model)
     sample_launches, sample_routes, _ = phase_sample(cfg, model, diffusion)
     reuse = phase_reuse(cfg, model, card)
+    graphs = phase_graphs(cfg, model, card)
     ckpt_root = os.path.join(here, "checkpoints")
     os.makedirs(ckpt_root, exist_ok=True)
     serve = phase_serve(cfg, model, card, ckpt_root)
@@ -3046,7 +3318,7 @@ def main() -> int:
         phase_evals(ckpt_root, card)
     launches = {"train": train_launches, "sample_video": sample_launches}
     routes = {"train": train_routes, "sample_video": sample_routes}
-    for path, (c, r) in {**reuse, **serve, **parallel, **latent, **cli}.items():
+    for path, (c, r) in {**reuse, **graphs, **serve, **parallel, **latent, **cli}.items():
         launches[path], routes[path] = c, r
     emit(kernels_line(results, launches, routes))
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

@@ -10,7 +10,11 @@ lambda_t = log(alpha_t / sigma_t), going down the lattice s -> t:
     D   = (1 + 1/(2r)) x0(x_s, s) - 1/(2r) x0(x_prev, prev),  r = h_prev / h
 
 The first step uses D = x0; the last targets abar = 1 and returns x0. The
-per-step coefficients are computed on the host in float64, then used as f32.
+per-step coefficients are computed on the host in float64, then used as f32:
+an (N, 4) table on the sampling device whose rows the step reads as 0-d f32
+tensors, which multiply as the f32 constants of the JAX scan do. The first
+step's d1 is 0, so one step form (``dpm_solver_pp_step``) serves every step,
+and a CUDA graph of it replays for all of them (``sampling/graphs.py``).
 Choose the step count with ``timestep_respacing`` ("dpmN" spaces the steps
 uniformly in lambda).
 """
@@ -84,6 +88,26 @@ def dpm_solver_pp_coefficients(diffusion) -> DPMSolverCoefficients:
     )
 
 
+def dpm_solver_pp_rows(diffusion, device) -> torch.Tensor:
+    """The coefficients on ``device``: an (N, 4) f32 table of rows (c_x,
+    c_d, d0, d1), one per step (step i at timestep ``ts[i]`` = N - 1 - i,
+    ``GaussianDiffusion.step_timesteps``)."""
+    co = dpm_solver_pp_coefficients(diffusion)
+    return torch.as_tensor(np.stack([co.c_x, co.c_d, co.d0, co.d1], axis=1), device=device)
+
+
+def dpm_solver_pp_step(diffusion, model_fn, x, x0_prev, t, row, *, clip_denoised=True,
+                       denoised_fn=None, model_kwargs=None):
+    """One step at timesteps ``t`` (B,) with ``row``, that step's (4,) f32
+    coefficients on x's device. Returns (the next state, this step's x0)."""
+    x0 = diffusion.p_mean_variance(model_fn, x, t, clip_denoised=clip_denoised,
+                                   denoised_fn=denoised_fn,
+                                   model_kwargs=model_kwargs)["pred_xstart"]
+    c_x, c_d, d0, d1 = row.unbind()
+    d = d0 * x0 + d1 * x0_prev
+    return c_x * x + c_d * d, x0
+
+
 def dpm_solver_pp_sample_loop(diffusion, model_fn, shape, *, device, noise=None,
                               generator=None, clip_denoised=True, denoised_fn=None,
                               model_kwargs=None, dtype=torch.float32) -> torch.Tensor:
@@ -92,22 +116,17 @@ def dpm_solver_pp_sample_loop(diffusion, model_fn, shape, *, device, noise=None,
     Deterministic given the terminal noise; ``generator`` only draws it when
     ``noise`` is not given.
     """
-    co = dpm_solver_pp_coefficients(diffusion)
     if noise is None:
         if generator is None:
             raise ValueError("pass noise= or a torch.Generator on the sampling device")
         noise = torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
+    rows = dpm_solver_pp_rows(diffusion, noise.device)
     x = noise
     x0_prev = torch.zeros_like(noise)
     B = shape[0]
-    for i in range(len(co.ts)):
-        t = torch.full((B,), int(co.ts[i]), dtype=torch.int64, device=x.device)
-        x0 = diffusion.p_mean_variance(model_fn, x, t, clip_denoised=clip_denoised,
-                                       denoised_fn=denoised_fn,
-                                       model_kwargs=model_kwargs)["pred_xstart"]
-        # f32 coefficients, as the JAX scan multiplies with f32 constants
-        c_x, c_d, d0, d1 = (float(a[i]) for a in (co.c_x, co.c_d, co.d0, co.d1))
-        d = d0 * x0 + d1 * x0_prev
-        x = c_x * x + c_d * d
-        x0_prev = x0
+    for i, s in enumerate(range(len(rows) - 1, -1, -1)):
+        t = torch.full((B,), s, dtype=torch.int64, device=x.device)
+        x, x0_prev = dpm_solver_pp_step(diffusion, model_fn, x, x0_prev, t, rows[i],
+                                        clip_denoised=clip_denoised, denoised_fn=denoised_fn,
+                                        model_kwargs=model_kwargs)
     return x

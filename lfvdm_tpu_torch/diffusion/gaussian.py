@@ -184,11 +184,24 @@ class GaussianDiffusion:
         return vals.reshape(vals.shape + (1,) * (ndim - 1))
 
     def tables_on(self, device) -> None:
-        """Put every table on ``device`` now (``_extract``'s cache), so that a
-        tracer such as ``torch.export`` reads them as real constants."""
+        """Put every table on ``device`` now (``_extract``'s cache, and
+        ``step_timesteps``), so that a tracer such as ``torch.export`` reads
+        them as real constants and a CUDA graph capture copies nothing from
+        the host."""
         t = torch.zeros((1,), dtype=torch.int64, device=device)
         for name in [*self._tables, *(["timestep_map"] if self.timestep_map is not None else [])]:
             self._extract(name, t, 1)
+        self.step_timesteps(device)
+
+    def step_timesteps(self, device) -> torch.Tensor:
+        """The (N,) int64 table of the samplers' timesteps on ``device``, in
+        step order: step i runs at timestep N - 1 - i."""
+        key = ("step_timesteps", torch.device(device))
+        table = self._device_tables.get(key)
+        if table is None:
+            table = self._device_tables[key] = torch.arange(
+                self.num_timesteps - 1, -1, -1, dtype=torch.int64, device=device)
+        return table
 
     # ---- timestep handling ----
 
@@ -288,6 +301,13 @@ class GaussianDiffusion:
 
     # ---- sampling ----
 
+    # The samplers' steps (p_sample, p_sample_features, ddim_sample, and
+    # dpm_solver.dpm_solver_pp_step) take the timestep as a tensor and the
+    # noise as an input, so one CUDA graph of a step serves every step of a
+    # window (sampling/graphs.py): there t is read from ``step_timesteps``
+    # at a step index held on the device (``step_timestep``). The eager
+    # loops call the same steps.
+
     def p_sample(self, model_fn, x, t, *, noise=None, generator=None, clip_denoised=True,
                  denoised_fn=None, model_kwargs=None) -> Dict[str, torch.Tensor]:
         """One ancestral step x_t -> x_{t-1}; no noise is added at t == 0.
@@ -296,6 +316,17 @@ class GaussianDiffusion:
                                    denoised_fn=denoised_fn, model_kwargs=model_kwargs)
         return {"sample": self._ancestral_update(out, x, t, noise, generator),
                 "pred_xstart": out["pred_xstart"]}
+
+    def p_sample_features(self, model_fn_features, x, t, features, *, noise=None,
+                          generator=None, clip_denoised=True, denoised_fn=None):
+        """One ancestral step under encoder reuse: ``model_fn_features(x,
+        model_t, features_or_None) -> (out, features)`` runs the full U-Net
+        (``features`` None) or its up path on ``features``. Returns (x_{t-1},
+        the features)."""
+        out, features = model_fn_features(x, self._model_t(t), features)
+        pmv = self.p_mean_variance_from_output(out, x, t, clip_denoised=clip_denoised,
+                                               denoised_fn=denoised_fn)
+        return self._ancestral_update(pmv, x, t, noise, generator), features
 
     def p_sample_loop(self, model_fn, shape: Tuple[int, ...], *, device, noise=None,
                       generator=None, clip_denoised=True, denoised_fn=None, model_kwargs=None,
@@ -333,11 +364,13 @@ class GaussianDiffusion:
         feats = None
         acc = None
         quarter = self.num_timesteps / 4.0
+        step = dict(generator=generator, clip_denoised=clip_denoised, denoised_fn=denoised_fn)
         for i, s in enumerate(range(self.num_timesteps - 1, -1, -1)):
             t = torch.full((B,), s, dtype=torch.int64, device=img.device)
             if encoder_reuse > 1:
-                out, feats = model_fn_features(img, self._model_t(t),
-                                               None if i % encoder_reuse == 0 else feats)
+                img, feats = self.p_sample_features(
+                    model_fn_features, img, t, None if i % encoder_reuse == 0 else feats,
+                    noise=_step(step_noise, i), **step)
             elif return_attn_weights:
                 out, attns = self.call_model(model_fn, img, t, kwargs)
                 if acc is None:
@@ -345,11 +378,12 @@ class GaussianDiffusion:
                 q = (4 * s) // self.num_timesteps
                 acc[0][q] += sum(a.float() for a in attns["temporal"]) / quarter
                 acc[1][q] += _combined_spatial(attns["spatial"], acc[1].shape[-1]) / quarter
+                pmv = self.p_mean_variance_from_output(out, img, t, clip_denoised=clip_denoised,
+                                                       denoised_fn=denoised_fn)
+                img = self._ancestral_update(pmv, img, t, _step(step_noise, i), generator)
             else:
-                out = self.call_model(model_fn, img, t, kwargs)
-            pmv = self.p_mean_variance_from_output(out, img, t, clip_denoised=clip_denoised,
-                                                   denoised_fn=denoised_fn)
-            img = self._ancestral_update(pmv, img, t, _step(step_noise, i), generator)
+                img = self.p_sample(model_fn, img, t, noise=_step(step_noise, i),
+                                    model_kwargs=kwargs, **step)["sample"]
         if not return_attn_weights:
             return img
         maps = {}
@@ -559,6 +593,12 @@ def _randn(shape, like=None, generator=None, device=None, dtype=None):
     if like is not None:
         device, dtype = like.device, like.dtype
     return torch.randn(tuple(shape), generator=generator, device=device, dtype=dtype)
+
+
+def step_timestep(table: torch.Tensor, i: torch.Tensor, batch: int) -> torch.Tensor:
+    """``table[i]`` repeated to (batch,), ``i`` a 0-d int64 tensor on the
+    table's device: one gather, no read back to the host."""
+    return table.index_select(0, i.reshape(1).expand(batch))
 
 
 def _step(noise: Optional[Sequence[torch.Tensor]], i: int) -> Optional[torch.Tensor]:

@@ -10,15 +10,74 @@ here rather than through ``torch.library.register_autograd``, whose generic
 Python kernel cost 18-37 µs more host time per call than this one with
 inputs that require grad, and ``torch.library.custom_op`` was dearer still
 (``tools/op_dispatch_cost.py`` on the card; ``PERF.md``).
+
+Each wrapper counts the launches of its kernel (``<wrapper>.launches``, and
+``<wrapper>.launches_by_route`` for a kernel with routes), registered here
+by ``counted``. ``launch_snapshot`` and ``add_launches`` read and add to
+every counter at once: a CUDA graph (``sampling/graphs.py``) records the
+counts its capture added, takes them back (a capture executes nothing) and
+adds them again at every replay, so the counters count kernels executed.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh: DType
 
 LIB = torch.library.Library("lfvdm", "DEF")  # the namespace, defined once
+
+_COUNTED = []  # the wrappers whose launches are counted, in registration order
+
+
+def counted(wrapper, routes: Optional[Sequence[str]] = None):
+    """Give ``wrapper`` its launch counter (and one per route) at 0, and
+    register it with ``launch_snapshot``; returns it."""
+    wrapper.launches = 0
+    if routes is not None:
+        wrapper.launches_by_route = dict.fromkeys(routes, 0)
+    _COUNTED.append(wrapper)
+    return wrapper
+
+
+def reset_launch_counts():
+    """Set every registered launch counter to 0."""
+    for w in _COUNTED:
+        w.launches = 0
+        if hasattr(w, "launches_by_route"):
+            w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)
+
+
+LaunchCounts = Dict[Tuple[str, Optional[str]], int]
+
+
+def launch_snapshot() -> LaunchCounts:
+    """Every counter now: ``(name, None)`` for a kernel's launches and
+    ``(name, route)`` for its launches on each route."""
+    out = {}
+    for w in _COUNTED:
+        out[(w.__name__, None)] = w.launches
+        for route, n in getattr(w, "launches_by_route", {}).items():
+            out[(w.__name__, route)] = n
+    return out
+
+
+def launch_delta(after: LaunchCounts, before: LaunchCounts) -> LaunchCounts:
+    """``after - before``, counter by counter."""
+    return {key: n - before.get(key, 0) for key, n in after.items()}
+
+
+def add_launches(delta: LaunchCounts, sign: int = 1):
+    """Add ``sign * delta`` to the counters (``launch_snapshot``'s keys)."""
+    by_name = {w.__name__: w for w in _COUNTED}
+    for (name, route), n in delta.items():
+        w = by_name[name]
+        if route is None:
+            w.launches += sign * n
+        else:
+            w.launches_by_route[route] += sign * n
 
 
 def define(name: str, schema: str, *, cpu, cuda, fake, backward, setup_context):

@@ -53,7 +53,7 @@ import torch
 
 from . import _build
 from ._common import (_DTYPE_CODES, _check_device, _check_impl, _check_launch, _replay_plain,
-                      define)
+                      counted, define, reset_launch_counts)  # noqa: F401 (re-exported)
 from .skipconv import skip_conv_stats
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -145,8 +145,7 @@ def spatial_attention(q, k, v, *, impl: str = "auto"):
     return _spatial_op(q, k, v)
 
 
-spatial_attention.launches = 0
-spatial_attention.launches_by_route = dict.fromkeys(_SPATIAL_SYMBOLS, 0)
+counted(spatial_attention, _SPATIAL_SYMBOLS)
 
 
 # ---------------------------------------------------------------------------
@@ -233,16 +232,7 @@ def temporal_rpe_attention(q, k, v, r_k, r_q_t, r_v_t, mask, *, impl: str = "aut
     return _temporal_op(q, k, v, r_k, r_q_t, r_v_t, mask)
 
 
-temporal_rpe_attention.launches = 0
-
-
-def reset_launch_counts():
-    """Set the launch counter of every kernel of the port to 0."""
-    spatial_attention.launches = 0
-    spatial_attention.launches_by_route = dict.fromkeys(_SPATIAL_SYMBOLS, 0)
-    temporal_rpe_attention.launches = 0
-    skip_conv_stats.launches = 0
-    skip_conv_stats.launches_by_route = dict.fromkeys(skip_conv_stats.launches_by_route, 0)
+counted(temporal_rpe_attention)
 
 
 def launch_counts() -> dict:

@@ -49,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from ._common import _DTYPE_CODES, _check_device, _check_impl, _check_launch, define
+from ._common import _DTYPE_CODES, _check_device, _check_impl, _check_launch, counted, define
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -258,5 +258,4 @@ def skip_conv_stats(x1, x2, w, b, resid, *, impl: str = "auto"):
     return _skip_op(x1, x2, w, b, resid)
 
 
-skip_conv_stats.launches = 0
-skip_conv_stats.launches_by_route = dict.fromkeys(ROUTES, 0)
+counted(skip_conv_stats, ROUTES)

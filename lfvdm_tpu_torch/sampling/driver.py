@@ -20,11 +20,19 @@ thread: their launches are asynchronous and a window makes no host sync, so
 a card computes while the host enqueues the next card's window, with none of
 the launch-counter races and per-thread device state that a thread per card
 would bring.
+
+Each window runs as a program made once per (replica, window shape)
+(``_sampler_for``, the counterpart of the JAX driver's per-shape memo of
+compiled samplers; ``sampling/graphs.py``): on a CUDA device a CUDA graph
+of one reverse step, captured at the first window of its shape and
+replayed once per diffusion step; on the CPU the same step run eagerly on
+the program's buffers. A scheme's tail window (a K below ``max_frames``)
+gets a program of its own. ``graphs=False`` runs the eager loops of
+``diffusion/gaussian.py`` and ``dpm_solver.py`` instead.
 """
 
 from __future__ import annotations
 
-import contextlib
 import copy
 from typing import Optional, Sequence
 
@@ -35,6 +43,7 @@ from ..diffusion.dpm_solver import dpm_solver_pp_sample_loop
 from ..diffusion.gaussian import GaussianDiffusion
 from ..parallel.sharding import row_blocks
 from ..utils.device import process_index_and_count
+from .graphs import WindowProgram, eval_mode
 from .schemes import sampling_schemes
 
 
@@ -44,12 +53,15 @@ class VideoSampler:
     video out of diffusion space. ``devices``: sample each window's rows
     over these devices (see the module docstring); ``model`` moves to the
     first, and the others get copies. ``model_calls`` counts every
-    replica's calls."""
+    replica's calls. ``graphs``: run each window as a program memoized per
+    replica and shape (a CUDA graph of one step on the card, see the module
+    docstring); False runs the eager loops, the reference the programs are
+    held to."""
 
     def __init__(self, model: torch.nn.Module, diffusion: GaussianDiffusion, *,
                  clip_denoised: bool = True, use_ddim: bool = False, use_dpm: bool = False,
                  eta: float = 0.0, encoder_reuse: int = 1, codec=None,
-                 devices: Optional[Sequence[torch.device]] = None):
+                 devices: Optional[Sequence[torch.device]] = None, graphs: bool = True):
         if use_ddim and use_dpm:
             raise ValueError("pick one of use_ddim / use_dpm")
         # Encoder reuse (arXiv:2312.09608): the U-Net's down and middle path
@@ -77,6 +89,9 @@ class VideoSampler:
         self.encoder_reuse = int(encoder_reuse)
         self.model_calls = 0  # U-Net forwards run by this sampler
         self.reuse_calls = 0  # of which up-path-only calls on cached features
+        self.graphs = graphs
+        self._programs = {}  # (replica, device, input shapes) -> WindowProgram
+        self._pools = {}  # device -> the graph memory pool its programs share
 
     def _model_fn(self, model):
         def fn(x, ts, **kw):
@@ -123,7 +138,7 @@ class VideoSampler:
         device. ``generator`` (on that device) draws the noise, or pass the
         terminal ``noise`` and, for the ancestral sampler, each step's
         ``step_noise``. Returns a (B, K, C, H, W) f32 tensor on the sampler's
-        device.
+        device, the caller's own (not a program's buffer).
         """
         B, n = len(x0), len(self.replicas)
         if n == 1 or B % n:
@@ -131,11 +146,11 @@ class VideoSampler:
                 self._warned_tail.add(B)
                 print(f"sample_window: batch {B} not divisible by the {n} devices; running "
                       "replicated")
-            return self._window(self.model, x0, frame_indices, obs_mask, latent_mask,
-                                generator, noise, step_noise)
+            return self._window(0, x0, frame_indices, obs_mask, latent_mask, generator, noise,
+                                step_noise)
         start = generator.get_state() if generator is not None else None
         outs = []
-        for model, rows in zip(self.replicas, row_blocks(B, n)):
+        for replica, (model, rows) in enumerate(zip(self.replicas, row_blocks(B, n))):
             dev = next(model.parameters()).device
             gen = None
             if generator is not None:
@@ -146,20 +161,49 @@ class VideoSampler:
             rows_steps = _Rows(step_noise.__getitem__ if step_noise is not None else draw,
                                rows, dev)
             part = [a[rows] for a in (x0, frame_indices, obs_mask, latent_mask)]
-            outs.append(self._window(model, *part, None, rows_noise, rows_steps))
+            outs.append(self._window(replica, *part, None, rows_noise, rows_steps))
         if generator is not None:
             generator.set_state(gen.get_state())  # where the one-device window leaves it
         return torch.cat([o.to(self.device) for o in outs])
 
-    def _window(self, model, x0, frame_indices, obs_mask, latent_mask, generator, noise,
+    def _mode(self) -> str:
+        if self.use_ddim:
+            return "ddim"
+        if self.use_dpm:
+            return "dpm"
+        return "reuse" if self.encoder_reuse > 1 else "ancestral"
+
+    def _sampler_for(self, replica: int, window) -> WindowProgram:
+        """The program of ``replica`` for this window's input shapes, made at
+        the first window of those shapes (JAX's ``_sampler_for``, memoized
+        per call shape)."""
+        dev = window["x0"].device
+        key = (replica, str(dev)) + tuple(tuple(v.shape) for v in window.values())
+        program = self._programs.get(key)
+        if program is None:
+            pool = None
+            if dev.type == "cuda":
+                pool = self._pools.get(dev)
+                if pool is None:
+                    pool = self._pools[dev] = torch.cuda.graph_pool_handle()
+            program = self._programs[key] = WindowProgram(
+                self.replicas[replica], self.diffusion, window, mode=self._mode(), eta=self.eta,
+                clip_denoised=self.clip_denoised, encoder_reuse=self.encoder_reuse, owner=self,
+                pool=pool)
+        return program
+
+    def _window(self, replica, x0, frame_indices, obs_mask, latent_mask, generator, noise,
                 step_noise):
-        """One window on ``model``'s device."""
+        """One window on replica ``replica``'s device."""
+        model = self.replicas[replica]
         dev = next(model.parameters()).device
         kwargs, shape = self._window_args(x0, frame_indices, obs_mask, latent_mask, dev)
+        if self.graphs:
+            return self._program_window(replica, kwargs, shape, generator, noise, step_noise)
         common = dict(device=dev, noise=noise, generator=generator,
                       clip_denoised=self.clip_denoised, model_kwargs=kwargs)
         model_fn = self._model_fn(model)
-        with _eval_mode(model):
+        with eval_mode(model):
             if self.use_ddim:
                 return self.diffusion.ddim_sample_loop(model_fn, shape, eta=self.eta,
                                                        step_noise=step_noise, **common)
@@ -168,6 +212,19 @@ class VideoSampler:
             return self.diffusion.p_sample_loop(
                 model_fn, shape, step_noise=step_noise, encoder_reuse=self.encoder_reuse,
                 model_fn_features=self._model_fn_features(model, kwargs), **common)
+
+    def _program_window(self, replica, kwargs, shape, generator, noise, step_noise):
+        """The window through its program: the terminal noise, then per step
+        that step's noise (drawn in the eager loop's order) and one run."""
+        program = self._sampler_for(replica, kwargs)
+        draw = _full_batch_draws(shape, generator, program.device)
+        program.load(kwargs, noise if noise is not None else draw(None))
+        for i in range(program.steps):
+            step = None
+            if program.noise is not None:
+                step = step_noise[i] if step_noise is not None else draw(i)
+            program.run(i, step)
+        return program.x.clone()
 
     @torch.no_grad()
     def sample_window_attn(self, x0, frame_indices, obs_mask, latent_mask, *, generator=None,
@@ -183,7 +240,7 @@ class VideoSampler:
             raise ValueError("sample_window_attn runs the exact ancestral sampler; it cannot "
                              "honor use_ddim, use_dpm or encoder_reuse > 1")
         kwargs, shape = self._window_args(x0, frame_indices, obs_mask, latent_mask)
-        with _eval_mode(self.model):
+        with eval_mode(self.model):
             return self.diffusion.p_sample_loop(
                 self._model_fn_attn, shape, device=self.device, noise=noise,
                 generator=generator, step_noise=step_noise, clip_denoised=self.clip_denoised,
@@ -271,15 +328,3 @@ class _Rows:
 
     def __getitem__(self, i: int) -> torch.Tensor:
         return self.source(i)[self.rows].to(self.device)
-
-
-@contextlib.contextmanager
-def _eval_mode(model: torch.nn.Module):
-    """Run ``model`` in eval mode inside (as JAX samples with train=False),
-    and put its mode back after."""
-    was_training = model.training
-    model.eval()
-    try:
-        yield
-    finally:
-        model.train(was_training)
