@@ -91,7 +91,19 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                without the prefetch (three draws back to back), one step in
                two microbatches, one non-finite step that changes nothing, a
                checkpoint save and resume, and a profile of one step by kernel
-               group.
+               group. The loop's steps replay a captured step (one CUDA graph
+               per step shape, training/graphs.py TrainProgram).
+  6b. train graphs — the captured train step against the eager train_step
+               (phase_train_graphs, on the flagship config after phase 6 and on
+               the latent config after phase 8 d), from two identical states
+               and one set of draws: bitwise after each of 3 steps (losses,
+               gradient norms, parameters, Adam moments and count, EMA); every
+               replay with no host sync (set_sync_debug_mode("error")) and
+               7 + 7 + 10 launches (latent 7 + 7 + 8) on "mma"/"bulk"; a NaN
+               batch replayed leaves every bit of the state; ms per step both
+               ways in turns (CUDA events and wall); each way's device busy time
+               and idle share from the profiler, which must name each kernel
+               inside the replays; capture seconds, pool bytes, peak memory.
   7. parity  — one train step's loss and gradients on the kernel path against
                impl="plain", in bf16 and in f32 (TF32 off).
   7b. parallel — data parallelism and remat (lfvdm_tpu_torch/parallel) on the
@@ -136,7 +148,8 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                d. train  — TrainLoop on the latent config: 3 steps over an
                            EncodedNpyDataset of seeded latents (written to a
                            temporary directory and removed), then 2 steps with
-                           VAECodec encoding 256 px frames online.
+                           VAECodec encoding 256 px frames online; then phase
+                           6b at the pre-encoded step's shape.
                The VAE phases run at PyTorch's default TF32 settings.
   9. cli     — the entry points' main(argv), in process, at the flagship's
                full width, on a seeded CARLA-layout fixture (8 train and 4 test
@@ -1641,9 +1654,11 @@ TRAIN_STEPS = 6  # timed steps
 # during its first epoch (2 batches of 2 per step), so the timed steps start
 # once every video is cached.
 TRAIN_WARMUP = 4
-def phase_train(ckpt_dir):
+def phase_train(ckpt_dir, card):
     """TrainLoop at the flagship config over 128 px synthetic videos: the
-    checks of the training path; returns its launch counts."""
+    checks of the training path (its steps replay a captured step), then
+    phase 6b on the flagship config; returns the loop's launch counts and
+    routes, and one replay's."""
     import torch
 
     from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
@@ -1736,6 +1751,8 @@ def phase_train(ckpt_dir):
 
     row = {"phase": "train", "config": "flagship", "B": FLAGSHIP_B, "K": FLAGSHIP_K,
            "dtype": cfg["compute_dtype"], "dataset": "synthetic 128 px, T=100",
+           "step_kind": loop.step_kind,
+           "capture_s": [p.capture_s for p in loop._programs.values()],
            "warmup_steps": TRAIN_WARMUP, "warmup_s": warm_s, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in step_s],
            "mean_ms_per_step": sum(step_s) / len(step_s) * 1e3,
            "peak_mem_gib": peak / 2**30, "host_batch_prep_ms": prep_ms,
@@ -1763,7 +1780,13 @@ def phase_train(ckpt_dir):
         raise RuntimeError("the non-finite step was not skipped cleanly")
     if not resume_equal:
         raise RuntimeError("the resumed state differs from the saved one")
-    return launches, routes
+    if loop.step_kind != "captured" or len(loop._programs) != 1:
+        raise RuntimeError(f"the loop stepped {loop.step_kind} with {len(loop._programs)} "
+                           "captured step shapes, not one")
+    del loop, named, p_before
+    torch.cuda.empty_cache()
+    replay = phase_train_graphs("flagship", cfg, FLAGSHIP_B, FLAGSHIP_K, card)
+    return launches, routes, replay
 
 
 def _clone(tree):
@@ -1805,6 +1828,175 @@ def _profile_train_step(loop, steps: int = 2):
             "device_busy_ms_per_step": busy, "host_syncs_per_step": _host_syncs(prof, steps),
             "groups_ms_per_step": group_ms(per_kernel),
             "top_device_ms_per_step": [[k[:90], ms, kernel_group(k)] for k, ms in top]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: the captured train step (training/graphs.py TrainProgram)
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAPH_STEPS = 3  # steps held bitwise, captured against eager (the first captures)
+TRAIN_GRAPH_TURNS = 2  # timed turns per side (A, B, B, A), after a warm-up step each
+TRAIN_GRAPH_PROFILED = 2  # steps per side under the profiler
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    """Inside, an operation that makes the host wait for the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _train_state(cfg):
+    """A train state of ``cfg`` on the card with phase 4's seeded weights
+    (zero layers at 1/10 scale) and TrainLoop's defaults (AdamW at LR 1e-4,
+    no weight decay, one EMA at 0.9999): every call gives the same state."""
+    import torch
+
+    from lfvdm_tpu_torch.config import create_model_and_diffusion
+    from lfvdm_tpu_torch.training.train_loop import init_train_state, make_optimizer
+
+    model, diffusion = create_model_and_diffusion(cfg, device="cuda", seed=0)
+    randomize_zero_modules(model, torch.Generator().manual_seed(1))
+    optimizer, schedule = make_optimizer(model.parameters(), 1e-4, 0.0)
+    return init_train_state(model, optimizer, schedule, [0.9999]), diffusion
+
+
+def _state_tensors(state):
+    """(name, tensor) for every tensor of a train state: the parameters, the
+    Adam moments and count, the EMA copies."""
+    out = [("adam/count", state.optimizer.count)]
+    for name, p in state.named_params():
+        st = state.optimizer.state[p]
+        out += [(f"params/{name}", p.detach()), (f"exp_avg/{name}", st["exp_avg"]),
+                (f"exp_avg_sq/{name}", st["exp_avg_sq"])]
+        out += [(f"ema/{rate}/{name}", copy[name]) for rate, copy in state.ema.items()]
+    return out
+
+
+def _bitwise_diffs(a, b):
+    """The names whose tensors differ in any bit, of two ``_state_tensors``."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return [n for (n, x), (_, y) in zip(a, b) if not torch.equal(bits(x), bits(y))]
+
+
+def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_counts=None):
+    """Captured train steps (``TrainProgram``) against the eager
+    ``train_step`` on ``cfg`` at (B, K), from two identical states and one
+    set of draws: bitwise after each of TRAIN_GRAPH_STEPS steps (metrics,
+    parameters, moments, count, EMA), every replay with no host sync and
+    ``per_forward`` launches on the expected routes; a NaN batch replayed
+    leaves every bit of the state; ms per step both ways in turns (CUDA
+    events and wall); each way's device busy time and idle share from the
+    profiler, which must name each kernel inside the replays; capture
+    seconds, pool bytes and peak memory. Returns one replay's launch counts
+    and routes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.training.graphs import TrainProgram
+    from lfvdm_tpu_torch.training.train_loop import train_step
+
+    eager, diffusion = _train_state(cfg)
+    captured, _ = _train_state(cfg)
+    inputs = [_flagship_step_inputs(cfg, B, seed=110 + i, K=K) for i in range(TRAIN_GRAPH_STEPS)]
+
+    def args(x):
+        return {k: x[k] for k in BATCH_KEYS}, x["t"], x["w"], x["noise"]
+
+    def eager_step(x):
+        return train_step(eager, *args(x)[:3], diffusion=diffusion, noise=x["noise"])
+
+    program, diffs, counts = None, [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, x in enumerate(inputs):
+        want = eager_step(x)
+        torch.cuda.synchronize()
+        if program is None:
+            eager_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+            mem0 = _mem()
+            torch.cuda.reset_peak_memory_stats()
+            program = TrainProgram(captured, diffusion, args(x)[0])
+            got = program.run(*args(x))  # the warm-up step, then the capture
+            torch.cuda.synchronize()
+            captured_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()
+            mem1 = _mem()
+        else:
+            ops.reset_launch_counts()
+            with _no_host_sync():
+                got = program.run(*args(x))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            _check_launches(*counts, 1, per_forward, route_counts)
+        diffs += [f"step {i}: {k}" for k in want if not torch.equal(got[k], want[k])]
+        diffs += [f"step {i}: {n}" for n in _bitwise_diffs(_state_tensors(captured),
+                                                          _state_tensors(eager))]
+
+    batch, t, w, noise = args(inputs[0])
+    bad = dict(batch, x0=batch["x0"].clone())
+    bad["x0"][0, 0, 0, 0, 0] = float("nan")
+    before = [(n, v.clone()) for n, v in _state_tensors(captured)]
+    with _no_host_sync():
+        m_nan = program.run(bad, t, w, noise)
+    torch.cuda.synchronize()
+    nan_changed = _bitwise_diffs(_state_tensors(captured), before)
+    del before
+
+    steps = {"eager": lambda: eager_step(inputs[0]),
+             "captured": lambda: program.run(*args(inputs[0]))}
+    times = _event_and_wall_ms_in_turns(steps, TRAIN_GRAPH_TURNS)
+    profiles = {}
+    for side, fn in steps.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRAIN_GRAPH_PROFILED):
+                fn()
+            torch.cuda.synchronize()
+        per_kernel = device_kernels_ms(prof, TRAIN_GRAPH_PROFILED)
+        busy = sum(per_kernel.values())
+        wall = sum(times[side]["wall_ms"]) / len(times[side]["wall_ms"])
+        profiles[side] = {
+            "device_busy_ms_per_step": busy, "idle_share": 1 - busy / wall if busy else None,
+            "host_syncs_per_step": _host_syncs(prof, TRAIN_GRAPH_PROFILED),
+            "kernels_seen_ms_per_step": {name: sum(ms for k, ms in per_kernel.items()
+                                                   if f"{name}_" in k) for name in KERNEL_NAMES},
+            "groups_ms_per_step": group_ms(per_kernel)}
+    row = {"phase": "train_graphs", "config": label, "B": B, "K": K,
+           "dtype": cfg["compute_dtype"], "steps_bitwise": TRAIN_GRAPH_STEPS,
+           "bitwise": not diffs, "diffs": diffs[:10],
+           "nan_skipped": m_nan["skipped_nonfinite"].item(), "nan_state_unchanged": not nan_changed,
+           "ms_per_step": times, "profile": profiles, "capture_s": program.capture_s,
+           "launches_per_replay": counts[0], "routes_per_replay": counts[1],
+           "replay_deltas": {f"{n}:{r}" if r else n: c for (n, r), c in program.delta.items() if c},
+           "pool_allocated_bytes": mem1[0] - mem0[0], "pool_reserved_bytes": mem1[1] - mem0[1],
+           "eager_peak_gib": eager_peak / 2**30, "captured_peak_gib": captured_peak / 2**30,
+           "card": card}
+    emit(row)
+    if diffs:
+        raise RuntimeError(f"train graphs {label}: captured and eager differ: {diffs[:10]}")
+    if row["nan_skipped"] != 1.0 or nan_changed:
+        raise RuntimeError(f"train graphs {label}: the replayed NaN step changed "
+                           f"{nan_changed[:10]} (skipped {row['nan_skipped']})")
+    seen = profiles["captured"]["kernels_seen_ms_per_step"]
+    if not all(seen.values()):
+        raise RuntimeError(f"train graphs {label}: the profiler saw no replayed launch of "
+                           f"{[name for name, ms in seen.items() if not ms]} ({seen})")
+    del program, eager, captured
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1983,9 +2175,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _flagship_step_inputs(cfg, B, seed, device="cuda"):
-    """One train step's batch (B rows of seeded 128 px frames, masks drawn as
-    training draws them), timesteps, weights and noise, on ``device``."""
+def _flagship_step_inputs(cfg, B, seed, device="cuda", K=FLAGSHIP_K):
+    """One train step's batch (B rows of K seeded frames at ``cfg``'s size,
+    masks drawn as training draws them), timesteps, weights and noise, on
+    ``device``."""
     import numpy as np
     import torch
 
@@ -1994,7 +2187,7 @@ def _flagship_step_inputs(cfg, B, seed, device="cuda"):
     rng = np.random.default_rng(seed)
     C, S = cfg["in_channels"], cfg["image_size"]
     video = rng.uniform(-1, 1, (B, 60, C, S, S)).astype(np.float32)
-    x0, fi, obs, lat = sample_training_batch(rng, video, FLAGSHIP_K, batch2=video[::-1])
+    x0, fi, obs, lat = sample_training_batch(rng, video, K, batch2=video[::-1])
     t = rng.integers(0, cfg["diffusion_steps"], B)
     noise = rng.standard_normal(x0.shape).astype(np.float32)
     return {"x0": torch.tensor(x0, device=device),
@@ -2519,9 +2712,12 @@ def phase_latent_train(ckpt_root, vae, card):
     """TrainLoop on the latent config: steps over an EncodedNpyDataset of
     seeded latents in a temporary directory, then steps with VAECodec
     encoding 256 px synthetic frames on the card. Finite losses and 7 + 7 +
-    8 launches per step on the rules' routes."""
+    8 launches per step on the rules' routes. Then phase 6b at the
+    pre-encoded step's shape. Returns the pre-encoded steps' launch counts
+    and routes, and one replay's."""
     import numpy as np
 
+    from lfvdm_tpu_torch.config import latent_config
     from lfvdm_tpu_torch.data.datasets import EncodedNpyDataset, batch_generator, load_data
     from lfvdm_tpu_torch.diffusion.codecs import PreEncodedLatentCodec, VAECodec
 
@@ -2538,7 +2734,9 @@ def phase_latent_train(ckpt_root, vae, card):
         shutil.rmtree(tmp, ignore_errors=True)
     data = load_data("synthetic", batch_size=LATENT_B, T=LATENT_VIDEO_T, image_size=256)
     _latent_steps("vae_online", data, TimedEncode(VAECodec(vae=vae)), ckpt_root, card)
-    return counts
+    replay = phase_train_graphs("latent", latent_config(), LATENT_B, LATENT_K, card,
+                                LATENT_PER_FORWARD, latent_route_counts(_sms()))
+    return counts, replay
 
 
 def _latent_steps(kind, data, codec, ckpt_dir, card):
@@ -2569,7 +2767,7 @@ def _latent_steps(kind, data, codec, ckpt_dir, card):
         losses.append(metrics["loss"].float().cpu().tolist())
     launches, routes = read_counts()
     row = {"phase": "latent_train", "card": card, "data": kind, "B": LATENT_B, "K": LATENT_K,
-           "dtype": cfg["compute_dtype"], "steps": steps,
+           "dtype": cfg["compute_dtype"], "steps": steps, "step_kind": loop.step_kind,
            "ms_per_step": [x * 1e3 for x in step_s], "losses": losses,
            "launches": launches, "routes": routes,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -2599,10 +2797,11 @@ def phase_latent(ckpt_root, card):
         graphs = phase_graphs_latent(cfg, model, diffusion, vae, card)
         del model
         phase_vae_cpu(vae, card)
-        train = phase_latent_train(ckpt_root, vae, card)
+        train, train_replay = phase_latent_train(ckpt_root, vae, card)
     del vae
     torch.cuda.empty_cache()
-    return {"latent_sample": sample, "latent_train": train, "graphs_latent_video": graphs}
+    return {"latent_sample": sample, "latent_train": train, "latent_train_replay": train_replay,
+            "graphs_latent_video": graphs}
 
 # ---------------------------------------------------------------------------
 # Phase 9: the entry points — the video_sample and video_train CLIs
@@ -3306,7 +3505,7 @@ def main() -> int:
     del model
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=ckpt_root)
     try:
-        train_launches, train_routes = phase_train(ckpt_dir)
+        train_launches, train_routes, train_replay = phase_train(ckpt_dir, card)
         phase_serve_params(ckpt_dir, card)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -3316,8 +3515,10 @@ def main() -> int:
     cli = phase_cli(ckpt_root, card)
     with torch_tf32_defaults():
         phase_evals(ckpt_root, card)
-    launches = {"train": train_launches, "sample_video": sample_launches}
-    routes = {"train": train_routes, "sample_video": sample_routes}
+    launches = {"train": train_launches, "train_replay": train_replay[0],
+                "sample_video": sample_launches}
+    routes = {"train": train_routes, "train_replay": train_replay[1],
+              "sample_video": sample_routes}
     for path, (c, r) in {**reuse, **graphs, **serve, **parallel, **latent, **cli}.items():
         launches[path], routes[path] = c, r
     emit(kernels_line(results, launches, routes))

@@ -29,7 +29,8 @@ and FactorizedAttentionBlock: in training each such block keeps only its
 inputs and runs its forward again in the backward pass
 (``torch.utils.checkpoint``, non-reentrant), so its kernels launch twice per
 step. The recompute draws the same dropout masks as the forward, as JAX's
-remat replays the same key (``_remat``).
+remat replays the same key (``_remat``); a block whose dropout draws
+nothing keeps no RNG state.
 """
 
 from __future__ import annotations
@@ -61,6 +62,11 @@ class Dropout(nn.Module):
         self.p = p
         self.generator = None
 
+    @property
+    def draws(self) -> bool:
+        """Whether ``forward`` draws random numbers (train mode, 0 < p < 1)."""
+        return self.training and 0.0 < self.p < 1.0
+
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
@@ -77,14 +83,20 @@ def set_dropout_generator(model: nn.Module, generator) -> None:
             m.generator = generator
 
 
-def _remat(fn, generator, *args, **kwargs):
-    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint``, its
-    recompute drawing the same random numbers from ``generator`` as the
-    forward did. (``checkpoint`` restores the global RNGs itself, not an
-    explicit generator's.) The recompute puts the generator back where the
-    forward left it, so the run's stream goes on unchanged."""
+def _remat(fn, draws: bool, generator, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint``. Where ``fn``
+    ``draws`` random numbers, its recompute draws the same ones as the
+    forward did: from ``generator`` (``checkpoint`` restores the global RNGs
+    itself, not an explicit generator's), which the recompute puts back
+    where the forward left it, so the run's stream goes on unchanged; from
+    the global RNGs when ``generator`` is None. Where it draws none, no RNG
+    state is read or set, on the host or the device: the block's forward
+    and recompute then go into a CUDA graph as they are."""
+    checkpoint = torch.utils.checkpoint.checkpoint
+    if not draws:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
     if generator is None:
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
     start = generator.get_state()
     ran = []
 
@@ -99,7 +111,7 @@ def _remat(fn, generator, *args, **kwargs):
         finally:
             generator.set_state(resume)
 
-    return torch.utils.checkpoint.checkpoint(replay, *args, use_reentrant=False, **kwargs)
+    return checkpoint(replay, *args, use_reentrant=False, **kwargs)
 
 
 def _rematerialises(block: nn.Module) -> bool:
@@ -141,7 +153,8 @@ class ResBlock(nn.Module):
         otherwise ``out_stats`` is None. ``impl="plain"`` asks that call for
         its plain version."""
         if _rematerialises(self):
-            return _remat(self._forward, self.out_layers[2].generator, x, emb, in_stats, parts,
+            drop = self.out_layers[2]
+            return _remat(self._forward, drop.draws, drop.generator, x, emb, in_stats, parts,
                           impl)
         return self._forward(x, emb, in_stats, parts, impl)
 
@@ -203,7 +216,7 @@ class FactorizedAttentionBlock(nn.Module):
     def forward(self, x, temb, frame_indices, attn_mask, *, T: int,
                 return_attn: bool = False, impl: str = "auto"):
         if _rematerialises(self):
-            return _remat(self._forward, None, x, temb, frame_indices, attn_mask, T=T,
+            return _remat(self._forward, False, None, x, temb, frame_indices, attn_mask, T=T,
                           return_attn=return_attn, impl=impl)
         return self._forward(x, temb, frame_indices, attn_mask, T=T, return_attn=return_attn,
                              impl=impl)

@@ -189,6 +189,15 @@ def full_tensor(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """What an elementwise update of ``t`` touches on this rank: a DTensor's
+    local shard (under ``torch.no_grad()``, its storage itself), any other
+    tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def place_like(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """The full tensor ``value`` (the same on every rank) laid out as
     ``like``: a DTensor's placements over its mesh (rank 0's value is

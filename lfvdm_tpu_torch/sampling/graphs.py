@@ -58,6 +58,7 @@ import torch
 from ..diffusion.dpm_solver import dpm_solver_pp_rows, dpm_solver_pp_step
 from ..diffusion.gaussian import step_timestep
 from ..ops._common import add_launches, launch_delta, launch_snapshot
+from ..utils.device import capture_stream, current
 
 MODES = ("ancestral", "ddim", "dpm", "reuse")
 
@@ -135,7 +136,7 @@ class WindowProgram:
         ``noise`` where the sampler takes one."""
         kind = self.kind(i)
         launches = {}
-        with _current(self.device):
+        with current(self.device):
             self.i.fill_(i)
             if self.noise is not None:
                 self.noise.copy_(noise)
@@ -165,16 +166,16 @@ class WindowProgram:
         if self.device.type != "cuda":
             raise RuntimeError(f"CUDA graphs capture on a CUDA device, not {self.device}")
         t0 = time.perf_counter()
-        stream = _capture_stream(self.device)
+        stream = capture_stream(self.device)
         if stream.device != self.device:
             raise RuntimeError(f"capture stream on {stream.device}, program on {self.device}")
-        with _current(self.device), torch.no_grad(), eval_mode(self.model):
+        with current(self.device), torch.no_grad(), eval_mode(self.model):
             self.diffusion.tables_on(self.device)
-            current = torch.cuda.current_stream(self.device)
-            stream.wait_stream(current)
+            main = torch.cuda.current_stream(self.device)
+            stream.wait_stream(main)
             with torch.cuda.stream(stream):
                 warm = self._step(kind)
-            current.wait_stream(stream)
+            main.wait_stream(stream)
             graph = torch.cuda.CUDAGraph()
             before = launch_snapshot()
             with torch.cuda.graph(graph, pool=self.pool, stream=stream):
@@ -224,23 +225,6 @@ class WindowProgram:
                 noise=self.noise, **common)
         x.copy_(new)
         return features
-
-
-_CAPTURE_STREAMS = {}  # device -> the stream of every warm-up and capture there
-
-
-def _capture_stream(device) -> torch.cuda.Stream:
-    """One warm-up and capture stream per device, made once on that device:
-    the libraries keep a workspace per stream for the process's life."""
-    stream = _CAPTURE_STREAMS.get(device)
-    if stream is None:
-        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
-    return stream
-
-
-def _current(device):
-    """Make ``device`` the current CUDA device inside; nothing on the CPU."""
-    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _tensors(features):

@@ -1,20 +1,31 @@
 """Training: the train step and the host loop (counterpart of
 lfvdm_tpu/training/train_loop.py), on one card or one card per rank.
 
-The step is the JAX package's, run eagerly: q_sample, the U-Net forward and
-backward (its kernels launch in the forward, and again in the backward for
-the blocks a ``use_checkpoint`` model rematerialises; each kernel
-operator's backward is plain PyTorch), the weighted loss, AdamW with the
-optional linear LR anneal, the multi-rate f32 EMA and the non-finite skip.
-The JAX step selects the old state on device when the gradient norm is not
-finite; here the norm is read on the host (one sync per step) and a skipped
-step touches neither the parameters, the Adam moments, the schedule count
-nor any EMA.
+The step is the JAX package's: q_sample, the U-Net forward and backward (its
+kernels launch in the forward, and again in the backward for the blocks a
+``use_checkpoint`` model rematerialises; each kernel operator's backward is
+plain PyTorch), the weighted loss, the global gradient norm, AdamW (optax's
+update) with the optional linear LR anneal, and the multi-rate f32 EMA. As
+in the JAX step, the non-finite skip is decided on the device: the new
+parameters, Adam moments and EMA copies are selected against the old ones
+with ``torch.where`` on the norm's finite flag (JAX's ``select``) and the
+counts advance by that flag, so a skipped step leaves the state bitwise as
+it was, and the step reads nothing back to the host. The Adam count and the
+schedule's count are 0-d int64 tensors on the device, and the LR is
+computed from the latter there.
+
+On one card ``TrainLoop`` runs each step as one CUDA graph per step shape
+(``training/graphs.py`` ``TrainProgram``, the counterpart of the JAX loop's
+``jax.jit(train_step, donate_argnums=(0,))``); the graph and the eager
+``train_step`` run the same ``step_body``, so a captured step is the eager
+one bit for bit. On the CPU, and in a group of more than one process or
+with a ``mesh``, the loop runs ``train_step`` eagerly.
 
 In a group of more than one process the loop wraps the model for data
 parallelism (``parallel/sharding.py``: DDP, or FSDP2 with ``fsdp`` > 1).
 The gradient norm is then the global one, so every rank takes the same
-skip decision; each rank's EMA follows its own parameters (under FSDP its
+skip decision; the update runs on each rank's local tensors (FSDP2's
+shards); each rank's EMA follows its own parameters (under FSDP its
 shards); checkpoints and ``ema_params`` gather the full tensors. Not
 ported: the JAX package's fused-optimizer and bf16-EMA diagnostics, which
 measured TPU memory.
@@ -23,26 +34,26 @@ The host loop keeps the JAX package's cadence: mask sampling on a numpy
 generator, timestep importance sampling with loss-aware updates, log, save
 and sample intervals with quartile loss KVs, the ``DIFFUSION_TRAINING_TEST``
 early exit, and a checkpoint at the next step boundary on SIGTERM/SIGINT.
-Device noise comes from a ``torch.Generator`` on the model's device, and the
-ResBlocks' dropout masks from a second one, both seeded from ``seed`` plus
-the rank, as the host generator is (the JAX step derives its dropout key
-from the run's key), so the ranks draw different rows.
+Device noise comes from a ``torch.Generator`` on the model's device, drawn
+before each step in the order the step takes it, and the ResBlocks' dropout
+masks from a second one, both seeded from ``seed`` plus the rank, as the
+host generator is (the JAX step derives its dropout key from the run's
+key), so the ranks draw different rows.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-import functools
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..diffusion.gaussian import GaussianDiffusion
+from ..diffusion.gaussian import GaussianDiffusion, _randn
 from ..diffusion.resample import LossAwareSampler, ScheduleSampler, UniformSampler
 from ..models.unet import set_dropout_generator
 from ..parallel import sharding
@@ -55,34 +66,83 @@ from .masks import sample_training_batch
 METRIC_TERMS = ("mse", "vb", "eval-mse")
 
 
-def _linear_anneal(count: int, steps: int) -> float:
-    """optax.linear_schedule(1, 0, steps) at ``count``."""
-    return 1.0 - min(count, steps) / steps
+class AdamW:
+    """``optax.adamw``'s update (b1 0.9, b2 0.999, eps 1e-8, weight decay
+    added to the normalised update). Its moments (``state[p]``:
+    ``exp_avg``, ``exp_avg_sq``) are made zero at construction, laid out as
+    the parameters; ``count``, the updates made, is a 0-d int64 tensor on
+    the parameters' device."""
+
+    def __init__(self, params, lr: float, weight_decay: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.weight_decay, self.betas, self.eps = lr, weight_decay, betas, eps
+        with torch.no_grad():
+            self.state = {p: {"exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+                          for p in self.params}
+        device = sharding.local(self.params[0]).device
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def new_params(self, params: torch.Tensor, grads: torch.Tensor, lr,
+                   finite: torch.Tensor) -> torch.Tensor:
+        """One update of the flat local parameters ``params`` (``flat`` of
+        ``self.params``' local tensors, in order) from the flat ``grads`` at
+        learning rate ``lr`` (a number or a 0-d tensor). The moments and
+        the count take their new values where ``finite``, in place; the new
+        flat parameters are returned, not yet selected."""
+        b1, b2 = self.betas
+        m = [sharding.local(self.state[p]["exp_avg"]) for p in self.params]
+        v = [sharding.local(self.state[p]["exp_avg_sq"]) for p in self.params]
+        m_old, v_old = flat(m), flat(v)
+        count = self.count + 1
+        c1, c2 = 1.0 - torch.pow(b1, count), 1.0 - torch.pow(b2, count)
+        m_new = (grads * (1.0 - b1)).add_(m_old, alpha=b1)
+        v_new = (grads * grads).mul_(1.0 - b2).add_(v_old, alpha=b2)
+        update = (m_new / c1).div_((v_new / c2).sqrt_().add_(self.eps))
+        if self.weight_decay:
+            update.add_(params, alpha=self.weight_decay)
+        new = params + update.mul_(-lr)
+        del update
+        select(m, m_new, m_old, finite)
+        select(v, v_new, v_old, finite)
+        self.count.add_(finite)
+        return new
+
+
+class LinearAnneal:
+    """``optax.linear_schedule(1, 0, steps)`` read at ``count``, the updates
+    made so far: a 0-d int64 tensor on ``device``."""
+
+    def __init__(self, steps: int, device):
+        self.steps = steps
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+
+    def factor(self) -> torch.Tensor:
+        return 1.0 - self.count.clamp(max=self.steps).to(torch.float32) / self.steps
 
 
 def make_optimizer(params, lr: float, weight_decay: float, lr_anneal_steps: int = 0):
-    """AdamW (betas 0.9/0.999, eps 1e-8, decoupled weight decay, the update of
-    ``optax.adamw``) and, with ``lr_anneal_steps``, a ``LambdaLR`` that decays
-    the LR linearly to 0, read at the count of updates made so far as optax's
-    schedule is. Returns (optimizer, scheduler or None)."""
-    optimizer = torch.optim.AdamW([{"params": g} for g in _by_kind(params)], lr=lr,
-                                  betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
-    scheduler = None
-    if lr_anneal_steps:
-        scheduler = torch.optim.lr_scheduler.LambdaLR(
-            optimizer, functools.partial(_linear_anneal, steps=lr_anneal_steps))
-    return optimizer, scheduler
+    """``AdamW`` and, with ``lr_anneal_steps``, a ``LinearAnneal`` that decays
+    the LR linearly to 0, read at the count of updates made so far as
+    optax's schedule is. Returns (optimizer, schedule or None)."""
+    optimizer = AdamW(params, lr, weight_decay)
+    schedule = LinearAnneal(lr_anneal_steps, optimizer.count.device) if lr_anneal_steps else None
+    return optimizer, schedule
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model (as the step runs it: plain, DDP or FSDP2), its optimizer and
-    schedule, one f32 EMA copy per rate ({param name: tensor}, laid out as
-    the parameter) and the number of steps taken (skipped included)."""
+    LR schedule, one f32 EMA copy per rate ({param name: tensor}, laid out
+    as the parameter) and the number of steps taken (skipped included)."""
 
     model: nn.Module
-    optimizer: torch.optim.Optimizer
-    scheduler: Optional[torch.optim.lr_scheduler.LRScheduler]
+    optimizer: AdamW
+    scheduler: Optional[LinearAnneal]
     ema: Dict[str, Dict[str, torch.Tensor]]
     step: int = 0
 
@@ -96,23 +156,22 @@ class TrainState:
         builds). Under FSDP2 every rank must call it: it gathers."""
         full = sharding.full_tensor
         params, exp_avg, exp_avg_sq = {}, {}, {}
-        count = 0
         for name, p in self.named_params():
             params[name] = full(p.detach())
-            st = self.optimizer.state.get(p, {})
-            exp_avg[name] = full(st.get("exp_avg", torch.zeros_like(p)).detach())
-            exp_avg_sq[name] = full(st.get("exp_avg_sq", torch.zeros_like(p)).detach())
-            if "step" in st:
-                count = int(st["step"])
-        schedule = self.scheduler.last_epoch if self.scheduler is not None else count
+            st = self.optimizer.state[p]
+            exp_avg[name] = full(st["exp_avg"])
+            exp_avg_sq[name] = full(st["exp_avg_sq"])
+        count = int(self.optimizer.count)
+        schedule = int(self.scheduler.count) if self.scheduler is not None else count
         ema = {rate: {n: full(t) for n, t in copy.items()} for rate, copy in self.ema.items()}
         return {"params": params, "ema": ema,
                 "adam": {"count": count, "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq},
-                "schedule_count": int(schedule), "step": int(self.step)}
+                "schedule_count": schedule, "step": int(self.step)}
 
     def load_state_dict(self, state: dict):
         """Copy a ``state_dict()`` (full tensors on any device, the same on
-        every rank) into this state, each tensor laid out as its parameter."""
+        every rank) into this state's own tensors, in place, each laid out
+        as its parameter: a captured step goes on reading them."""
         named = self.named_params()
         if set(state["ema"]) != set(self.ema):
             raise ValueError(f"EMA rates {sorted(state['ema'])} != {sorted(self.ema)}")
@@ -124,17 +183,12 @@ class TrainState:
                 for rate in self.ema:
                     self.ema[rate][name].copy_(place(state["ema"][rate][name],
                                                      self.ema[rate][name]))
-                self.optimizer.state[p] = {
-                    "step": torch.tensor(float(adam["count"]), dtype=torch.float32),
-                    "exp_avg": place(adam["exp_avg"][name], p).clone(),
-                    "exp_avg_sq": place(adam["exp_avg_sq"][name], p).clone(),
-                }
-        if self.scheduler is not None:
-            count = int(state["schedule_count"])
-            self.scheduler.last_epoch = count
-            for group, base, fn in zip(self.optimizer.param_groups, self.scheduler.base_lrs,
-                                       self.scheduler.lr_lambdas):
-                group["lr"] = base * fn(count)
+                st = self.optimizer.state[p]
+                st["exp_avg"].copy_(place(adam["exp_avg"][name], p))
+                st["exp_avg_sq"].copy_(place(adam["exp_avg_sq"][name], p))
+            self.optimizer.count.fill_(int(adam["count"]))
+            if self.scheduler is not None:
+                self.scheduler.count.fill_(int(state["schedule_count"]))
         self.step = int(state["step"])
 
 
@@ -167,24 +221,14 @@ def micro_loss(model, diffusion: GaussianDiffusion, batch: Dict[str, torch.Tenso
     return (terms["loss"] * weights).mean(), terms
 
 
-def _by_kind(items, tensor_of=lambda x: x) -> List[list]:
-    """``items`` grouped by the kind of their tensor, in order. Under FSDP2 the
-    sharded parameters are DTensors and the replicated ones plain tensors,
-    which one foreach kernel (the optimizer's default on the card, the EMA's
-    everywhere) cannot take together."""
-    kinds: Dict[type, list] = {}
-    for x in items:
-        kinds.setdefault(type(tensor_of(x).detach()), []).append(x)
-    return list(kinds.values())
-
-
-def _ema_update(ema: Dict[str, Dict[str, torch.Tensor]], named):
-    for group in _by_kind([(n, p.detach()) for n, p in named], tensor_of=lambda x: x[1]):
-        for rate, copy in ema.items():
-            r = float(rate)
-            e = [copy[n] for n, _ in group]
-            torch._foreach_mul_(e, r)                    # e·r + p·(1 − r), in f32
-            torch._foreach_add_(e, [p for _, p in group], alpha=1.0 - r)
+def draw_noise(generator: torch.Generator, x0: torch.Tensor, n_microbatches: int = 1):
+    """A step's noise (x0's shape) as the step would draw it from
+    ``generator``: one block per microbatch, in order."""
+    B = x0.shape[0]
+    if B % n_microbatches:
+        raise ValueError(f"batch {B} does not split into {n_microbatches} microbatches")
+    shape = (B // n_microbatches,) + tuple(x0.shape[1:])
+    return torch.cat([_randn(shape, x0, generator) for _ in range(n_microbatches)])
 
 
 def backward_microbatches(model, diffusion: GaussianDiffusion, batch: Dict[str, torch.Tensor],
@@ -218,43 +262,95 @@ def backward_microbatches(model, diffusion: GaussianDiffusion, batch: Dict[str, 
     return loss, {k: torch.cat([c[k] for c in chunk_terms]) for k in chunk_terms[0]}
 
 
-def apply_gradients(state: TrainState):
-    """The update from the accumulated ``.grad``: AdamW, the LR schedule and
-    every EMA when the global gradient norm is finite, nothing otherwise.
-    Clears the gradients and advances ``state.step`` either way. Returns
-    (the gradient norm over every rank, whether the update was made)."""
+def flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The tensors' elements in one 1-D tensor, in order (a copy)."""
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def select(tensors: Sequence[torch.Tensor], new: torch.Tensor, old: torch.Tensor,
+           finite: torch.Tensor):
+    """Write into ``tensors`` the flat ``new`` where ``finite`` (a 0-d bool
+    tensor on their device) is true and the flat ``old`` (their own values)
+    where it is not: JAX's ``jnp.where(finite, new, old)``, bitwise, as one
+    elementwise select and one multi-tensor copy."""
+    chosen = torch.where(finite, new, old, out=new)
+    parts = chosen.split([t.numel() for t in tensors])
+    torch._foreach_copy_(list(tensors), [part.view_as(t) for part, t in zip(parts, tensors)])
+
+
+@torch.no_grad()
+def update_state(state: TrainState):
+    """The update from the accumulated ``.grad``, decided on the device:
+    AdamW, the schedule's count and every EMA take their new values where
+    the global gradient norm is finite, and keep their old ones, bitwise,
+    where it is not. The arithmetic runs on flat copies of each rank's
+    local tensors (a few dozen launches whatever the parameter count). Reads
+    nothing back to the host, and leaves the gradients and ``state.step``
+    alone. Returns (the gradient norm over every rank, whether it is
+    finite), 0-d tensors on the device."""
     named = state.named_params()
     for _, p in named:
         if p.grad is None:  # an unused parameter: a zero gradient, as in JAX
             p.grad = torch.zeros_like(p)
     sharding.sync_replicated_grads(state.model)
     grad_norm = sharding.global_grad_norm([p.grad for _, p in named])
-    finite = bool(torch.isfinite(grad_norm))  # the step's one host sync
-    if finite:
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
-        _ema_update(state.ema, named)
-    state.optimizer.zero_grad(set_to_none=True)
-    state.step += 1
+    finite = torch.isfinite(grad_norm)
+    opt, schedule = state.optimizer, state.scheduler
+    lr = opt.lr if schedule is None else opt.lr * schedule.factor()
+    params = [sharding.local(p) for _, p in named]
+    old = flat(params)
+    new = opt.new_params(old, flat([sharding.local(p.grad) for _, p in named]), lr, finite)
+    if schedule is not None:
+        schedule.count.add_(finite)
+    for rate, ema in state.ema.items():
+        r = float(rate)
+        copies = [sharding.local(ema[n]) for n, _ in named]
+        e = flat(copies)
+        select(copies, (e * r).add_(new, alpha=1.0 - r), e, finite)  # e·r + p·(1 − r), in f32
+    select(params, new, old, finite)
     return grad_norm.detach(), finite
+
+
+def apply_gradients(state: TrainState):
+    """``update_state``, then one more step taken. Returns (the gradient
+    norm over every rank, whether it is finite), 0-d tensors on the
+    device."""
+    out = update_state(state)
+    state.step += 1
+    return out
+
+
+def step_body(state: TrainState, batch: Dict[str, torch.Tensor], t: torch.Tensor,
+              weights: torch.Tensor, *, diffusion: GaussianDiffusion, noise=None,
+              generator=None, n_microbatches: int = 1,
+              pad_with_random_frames: bool = True) -> Dict[str, torch.Tensor]:
+    """The device work of one optimizer step (``backward_microbatches``,
+    then ``update_state``) with no host read; returns the step's metrics,
+    tensors on the device. What ``train_step`` runs, and what a
+    ``TrainProgram`` captures: the gradients it leaves stay allocated."""
+    state.model.train()
+    state.optimizer.zero_grad()
+    loss, terms = backward_microbatches(
+        state.model, diffusion, batch, t, weights, noise=noise, generator=generator,
+        n_microbatches=n_microbatches, pad_with_random_frames=pad_with_random_frames)
+    grad_norm, finite = update_state(state)
+    metrics = {"loss": terms["loss"], "grad_norm": grad_norm,
+               "skipped_nonfinite": (~finite).to(torch.float32), "weighted_loss": loss}
+    metrics.update({k: terms[k] for k in METRIC_TERMS if k in terms})
+    return metrics
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], t: torch.Tensor,
                weights: torch.Tensor, *, diffusion: GaussianDiffusion, noise=None,
                generator=None, n_microbatches: int = 1,
                pad_with_random_frames: bool = True) -> Dict[str, torch.Tensor]:
-    """One optimizer step in place on ``state`` (``backward_microbatches``,
-    then ``apply_gradients``); returns the step's metrics."""
-    state.model.train()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, terms = backward_microbatches(
-        state.model, diffusion, batch, t, weights, noise=noise, generator=generator,
-        n_microbatches=n_microbatches, pad_with_random_frames=pad_with_random_frames)
-    grad_norm, finite = apply_gradients(state)
-    metrics = {"loss": terms["loss"], "grad_norm": grad_norm,
-               "skipped_nonfinite": torch.tensor(float(not finite)), "weighted_loss": loss}
-    metrics.update({k: terms[k] for k in METRIC_TERMS if k in terms})
+    """One optimizer step in place on ``state``, eagerly (``step_body``; the
+    gradients are freed after it); returns the step's metrics."""
+    metrics = step_body(state, batch, t, weights, diffusion=diffusion, noise=noise,
+                        generator=generator, n_microbatches=n_microbatches,
+                        pad_with_random_frames=pad_with_random_frames)
+    state.optimizer.zero_grad()
+    state.step += 1
     return metrics
 
 
@@ -291,6 +387,11 @@ class TrainLoop:
     distribution, as the JAX loop does with no key); the pre-encoded codec's
     encode is the identity. ``profile_dir``: a ``torch.profiler``
     trace of steps [profile_start_step, + profile_num_steps) is written there.
+
+    ``run_step`` replays a captured step (``step_kind``) on one card and
+    steps eagerly otherwise; each returns the step's metrics as tensors on
+    the device, which are read on the host only at the log interval (and
+    the loss-aware schedule sampler's losses, after every step).
     """
 
     def __init__(
@@ -388,6 +489,8 @@ class TrainLoop:
         self.state = init_train_state(self.model, optimizer, scheduler, self.ema_rates)
 
         self.step = 0
+        self._programs = {}  # step shape -> TrainProgram
+        self._pool = None  # their graph memory pool
         self._pending = []
         self._interrupted = False
         self._window_start = time.time()
@@ -454,12 +557,44 @@ class TrainLoop:
 
     # ---- main loop ----
 
+    @property
+    def step_kind(self) -> str:
+        """How ``run_step`` steps: "captured" (one CUDA graph per step shape,
+        replayed once per step) on one card, with no group, no mesh and an
+        unwrapped model; "eager" (``train_step``) on the CPU and under DDP
+        or FSDP2."""
+        unwrapped = sharding.unwrap(self.model) is self.model and not sharding.is_sharded(
+            self.model)
+        captured = (self.device.type == "cuda" and self.world == 1 and self.mesh is None
+                    and unwrapped)
+        return "captured" if captured else "eager"
+
+    def _program_for(self, batch: Dict[str, torch.Tensor]):
+        """The ``TrainProgram`` of this step's shape (B, K, image or latent
+        size, microbatches), made at its first use; all of them share one
+        graph memory pool."""
+        from .graphs import TrainProgram
+
+        key = (tuple(batch["x0"].shape), self.n_microbatches)
+        program = self._programs.get(key)
+        if program is None:
+            if self._pool is None and self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
+            program = self._programs[key] = TrainProgram(
+                self.state, self.diffusion, batch, n_microbatches=self.n_microbatches,
+                pad_with_random_frames=self.pad_with_random_frames, pool=self._pool)
+        return program
+
     def run_step(self):
         t0 = time.time()
         batch, t, w, t_np, w_np = self.next_step_inputs()
-        metrics = train_step(self.state, batch, t, w, diffusion=self.diffusion,
-                             generator=self.generator, n_microbatches=self.n_microbatches,
-                             pad_with_random_frames=self.pad_with_random_frames)
+        noise = draw_noise(self.generator, batch["x0"], self.n_microbatches)
+        if self.step_kind == "captured":
+            metrics = self._program_for(batch).run(batch, t, w, noise)
+        else:
+            metrics = train_step(self.state, batch, t, w, diffusion=self.diffusion, noise=noise,
+                                 n_microbatches=self.n_microbatches,
+                                 pad_with_random_frames=self.pad_with_random_frames)
         if isinstance(self.schedule_sampler, LossAwareSampler):
             self.schedule_sampler.update_with_local_losses(t_np, _numpy(metrics["loss"]))
         self._pending.append((self.step, t_np, w_np, metrics, time.time() - t0))
@@ -486,12 +621,17 @@ class TrainLoop:
         self._window_start = time.time()
 
     def run_loop(self, max_steps: Optional[int] = None):
-        """Train until ``lr_anneal_steps`` or ``max_steps``. SIGTERM and
-        SIGINT request a checkpoint and a clean exit at the next step
-        boundary (handlers are installed from the main thread only)."""
+        """Train until ``lr_anneal_steps`` or ``max_steps``, after printing
+        (on rank 0) how the steps run (``step_kind``). SIGTERM and SIGINT
+        request a checkpoint and a clean exit at the next step boundary
+        (handlers are installed from the main thread only)."""
         import signal
         import threading
 
+        if self.rank == 0:
+            print(f"train step: {self.step_kind}" + (
+                " (one CUDA graph per step shape, replayed once per step)"
+                if self.step_kind == "captured" else ""))
         prev_handlers = {}
         if threading.current_thread() is threading.main_thread():
             def _request_stop(signum, frame):

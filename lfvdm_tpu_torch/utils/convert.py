@@ -270,8 +270,8 @@ def train_state_from_jax(state: Mapping, *, num_res_blocks: int, channel_mult,
     optax AdamW, ``ema`` by rate, step) -> the port's train-state dict.
 
     optax's Adam ``mu``/``nu`` become AdamW's ``exp_avg``/``exp_avg_sq`` and
-    its update count AdamW's ``step``; the schedule's count (optax keeps one
-    only for an annealed LR) becomes the LambdaLR count."""
+    its update count AdamW's ``count``; the schedule's count (optax keeps
+    one only for an annealed LR) becomes ``LinearAnneal``'s."""
     conv = functools.partial(unet_state_dict_from_jax, num_res_blocks=num_res_blocks,
                              channel_mult=channel_mult,
                              attention_resolutions=attention_resolutions)

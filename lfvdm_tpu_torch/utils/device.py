@@ -96,3 +96,22 @@ def full_f32():
         yield
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+_CAPTURE_STREAMS = {}  # device -> the stream of every CUDA graph warm-up and capture there
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """One warm-up and capture stream per device, made once on that device
+    (the libraries keep a workspace per stream for the process's life). The
+    captured sampling windows and train steps share it: ``torch.cuda.graph``'s
+    own default stream lies on whichever card captured first."""
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def current(device):
+    """Make ``device`` the current CUDA device inside; nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
