@@ -92,7 +92,12 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                two microbatches, one non-finite step that changes nothing, a
                checkpoint save and resume, and a profile of one step by kernel
                group. The loop's steps replay a captured step (one CUDA graph
-               per step shape, training/graphs.py TrainProgram).
+               per step shape, training/graphs.py TrainProgram). Back to back:
+               6 run_step calls and one synchronize after the last, after 6
+               untimed ones (ms per step, the host's ms per call and in
+               next_step_inputs), and the host syncs inside 3 more calls from
+               the profiler, which must be none: the loop places its inputs
+               with no host wait.
   6b. train graphs — the captured train step against the eager train_step
                (phase_train_graphs, on the flagship config after phase 6 and on
                the latent config after phase 8 d), from two identical states
@@ -101,9 +106,11 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                replay with no host sync (set_sync_debug_mode("error")) and
                7 + 7 + 10 launches (latent 7 + 7 + 8) on "mma"/"bulk"; a NaN
                batch replayed leaves every bit of the state; ms per step both
-               ways in turns (CUDA events and wall); each way's device busy time
-               and idle share from the profiler, which must name each kernel
-               inside the replays; capture seconds, pool bytes, peak memory.
+               ways in turns (CUDA events and wall), and 6 replays back to back
+               (the bare replay beside the loop's back-to-back steps); each
+               way's device busy time and idle share from the profiler, which
+               must name each kernel inside the replays; capture seconds, pool
+               bytes, peak memory.
   7. parity  — one train step's loss and gradients on the kernel path against
                impl="plain", in bf16 and in f32 (TF32 off).
   7b. parallel — data parallelism and remat (lfvdm_tpu_torch/parallel) on the
@@ -149,7 +156,25 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                            EncodedNpyDataset of seeded latents (written to a
                            temporary directory and removed), then 2 steps with
                            VAECodec encoding 256 px frames online; then phase
-                           6b at the pre-encoded step's shape.
+                           6b at the pre-encoded step's shape. The pre-encoded
+                           loop back to back and its host syncs, as in phase 6.
+               e. latent data path — in a temporary DATA_ROOT, a seeded CARLA
+                           layout (3 train uint8 (T, 128, 128, 3) .pt videos of
+                           1000, 100 and 100 frames, 1 test video of 100)
+                           pre-encoded by encode_latent.main on the card
+                           (--normalize, --chunk_size 100, the seeded VAE at
+                           published widths): seconds per video, ms per frame,
+                           peak memory, the statistics and n_obs, each file's
+                           shape, one copy to the host per video, the pixel
+                           preparation bitwise numpy's, 8 frames card vs CPU
+                           (relative L2 <= 1e-2); then video_train.main with
+                           the reference's latent command (--T 100) on those
+                           files: a
+                           captured step, 7 + 7 + 8 launches per replay on the
+                           rules' routes, finite losses, the loop back to back
+                           with no host sync; then the back-to-back ms per
+                           step of the flagship (phase 6), latent (8 d) and
+                           latent-data loops beside each bare replay (6b).
                The VAE phases run at PyTorch's default TF32 settings.
   9. cli     — the entry points' main(argv), in process, at the flagship's
                full width, on a seeded CARLA-layout fixture (8 train and 4 test
@@ -1708,6 +1733,7 @@ def phase_train(ckpt_dir, card):
     want_ema = e_before * r + named[ema_leaf].detach() * (1 - r)
     ema_err = (loop.state.ema[rate][ema_leaf] - want_ema).abs().max().item()
     moved = max((p.detach() - p_before[n]).abs().max().item() for n, p in named.items())
+    back_to_back = BACK_TO_BACK["flagship"] = _loop_back_to_back(loop)
 
     # The host's share of a step without the prefetch: drawing, masking and
     # uploading one batch, three times back to back, from the synchronous
@@ -1754,7 +1780,7 @@ def phase_train(ckpt_dir, card):
            "step_kind": loop.step_kind,
            "capture_s": [p.capture_s for p in loop._programs.values()],
            "warmup_steps": TRAIN_WARMUP, "warmup_s": warm_s, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in step_s],
-           "mean_ms_per_step": sum(step_s) / len(step_s) * 1e3,
+           "mean_ms_per_step": sum(step_s) / len(step_s) * 1e3, "back_to_back": back_to_back,
            "peak_mem_gib": peak / 2**30, "host_batch_prep_ms": prep_ms,
            "host_batch_ms_in_step_prefetch": [x * 1e3 for x in batch_s],
            "losses": losses, "param_max_change": moved,
@@ -1772,6 +1798,7 @@ def phase_train(ckpt_dir, card):
     if not ema_err <= 1e-6 * max(want_ema.abs().max().item(), 1e-30):
         raise RuntimeError(f"EMA leaf differs from e·r + p·(1 − r) by {ema_err}")
     _check_launches(launches, routes, TRAIN_STEPS)
+    _check_no_host_sync("train (flagship)", back_to_back)
     if micro_launches != {name: 2 * n for name, n in PER_FORWARD.items()}:
         raise RuntimeError(f"microbatch launches {micro_launches} != twice {PER_FORWARD}")
     if not math.isfinite(m2["weighted_loss"].item()) or m2["skipped_nonfinite"].item():
@@ -1828,6 +1855,109 @@ def _profile_train_step(loop, steps: int = 2):
             "device_busy_ms_per_step": busy, "host_syncs_per_step": _host_syncs(prof, steps),
             "groups_ms_per_step": group_ms(per_kernel),
             "top_device_ms_per_step": [[k[:90], ms, kernel_group(k)] for k, ms in top]}
+
+
+TRAIN_BACK_TO_BACK = 6  # run_step calls timed back to back, one synchronize after the last
+TRAIN_SYNC_STEPS = 3  # run_step calls whose host syncs the profiler counts
+# Each loop's back-to-back row and each bare replay's back-to-back ms, by
+# config: phase 8 e prints them side by side.
+BACK_TO_BACK = {}
+
+
+# Host calls that wait for the card without being a sync: a new page-locked
+# or device block (cudaHostAlloc waits for the device to drain).
+ALLOC_EVENTS = ("cudaHostAlloc", "cudaMalloc", "cudaFreeHost", "cudaFree")
+# Where a host ahead of the card waits for room in the CUDA launch queue.
+WAIT_EVENTS = ("cudaGraphLaunch", "Command Buffer Full")
+
+
+def _loop_back_to_back(loop, steps=TRAIN_BACK_TO_BACK, sync_steps=TRAIN_SYNC_STEPS):
+    """``steps`` ``loop.run_step`` calls back to back, one synchronize
+    after the last, after as many untimed ones (the caching host allocator
+    then holds page-locked blocks for a host ``steps`` ahead of the card, as
+    after a loop's first log window): ms per step (the card's pace when the
+    host keeps ahead of it); the host's ms inside each call (``run_step``
+    returns once the step is queued) and inside its ``next_step_inputs``
+    (drawing, masking, staging and queueing the copies; no synchronize);
+    then the host syncs and allocations per step the profiler sees inside
+    ``sync_steps`` more calls."""
+    import torch
+
+    inner, prep, host = loop.next_step_inputs, [], []
+
+    def timed():
+        t0 = time.perf_counter()
+        out = inner()
+        prep.append(time.perf_counter() - t0)
+        return out
+
+    for _ in range(steps):
+        loop.run_step()
+        loop.step += 1
+    loop.next_step_inputs = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            t1 = time.perf_counter()
+            loop.run_step()
+            host.append(time.perf_counter() - t1)
+            loop.step += 1
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        del loop.next_step_inputs
+    syncs, allocs, waits = _run_step_host_syncs(loop, sync_steps)
+    return {"steps": steps, "ms_per_step": total / steps * 1e3,
+            "host_ms_per_run_step": [x * 1e3 for x in host],
+            "host_ms_next_step_inputs": [x * 1e3 for x in prep],
+            "host_syncs_per_step": syncs, "host_allocs_per_step": allocs,
+            "host_wait_ms_per_step": waits}
+
+
+def _run_step_host_syncs(loop, steps):
+    """SYNC_EVENTS and ALLOC_EVENTS per ``loop.run_step`` call, and the host
+    ms per call in WAIT_EVENTS, from torch.profiler inside each call's range
+    on the host. The profile ends by polling an event (``query``: no sync of
+    its own) until the card has run the steps. A host far enough ahead
+    waits inside ``cudaGraphLaunch`` ("Command Buffer Full": the launch
+    queue holds two or three flagship steps): a throttle that keeps the
+    card busy, not a sync."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    label = "chip_smoke.run_step"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            with record_function(label):
+                loop.run_step()
+            loop.step += 1
+        done = torch.cuda.Event()
+        done.record()
+        while not done.query():
+            time.sleep(1e-3)
+    events = prof.events()
+    cpu = torch.autograd.DeviceType.CPU  # the host's ranges, not their device-side echo
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == label and e.device_type == cpu]
+    syncs, allocs, waits = {}, {}, {}
+    for e in events:
+        if not any(a <= e.time_range.start <= b for a, b in spans):
+            continue
+        counts = syncs if e.name in SYNC_EVENTS else allocs if e.name in ALLOC_EVENTS else None
+        if counts is not None:
+            counts[e.name] = counts.get(e.name, 0) + 1 / steps
+        if e.name in WAIT_EVENTS and e.device_type == cpu:
+            ms = (e.time_range.end - e.time_range.start) / 1e3
+            waits[e.name] = waits.get(e.name, 0) + ms / steps
+    return syncs, allocs, waits
+
+
+def _check_no_host_sync(label, row):
+    if row["host_syncs_per_step"]:
+        raise RuntimeError(f"{label}: TrainLoop.run_step made host syncs with the uniform "
+                           f"sampler: {row['host_syncs_per_step']} per step")
 
 
 # ---------------------------------------------------------------------------
@@ -1958,6 +2088,13 @@ def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_co
     steps = {"eager": lambda: eager_step(inputs[0]),
              "captured": lambda: program.run(*args(inputs[0]))}
     times = _event_and_wall_ms_in_turns(steps, TRAIN_GRAPH_TURNS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_BACK_TO_BACK):
+        steps["captured"]()
+    torch.cuda.synchronize()
+    replay_back_to_back = (time.perf_counter() - t0) / TRAIN_BACK_TO_BACK * 1e3
+    BACK_TO_BACK[f"{label}_replay_ms"] = replay_back_to_back
     profiles = {}
     for side, fn in steps.items():
         torch.cuda.synchronize()
@@ -1978,7 +2115,8 @@ def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_co
            "dtype": cfg["compute_dtype"], "steps_bitwise": TRAIN_GRAPH_STEPS,
            "bitwise": not diffs, "diffs": diffs[:10],
            "nan_skipped": m_nan["skipped_nonfinite"].item(), "nan_state_unchanged": not nan_changed,
-           "ms_per_step": times, "profile": profiles, "capture_s": program.capture_s,
+           "ms_per_step": times, "replay_back_to_back_ms": replay_back_to_back,
+           "profile": profiles, "capture_s": program.capture_s,
            "launches_per_replay": counts[0], "routes_per_replay": counts[1],
            "replay_deltas": {f"{n}:{r}" if r else n: c for (n, r), c in program.delta.items() if c},
            "pool_allocated_bytes": mem1[0] - mem0[0], "pool_reserved_bytes": mem1[1] - mem0[1],
@@ -2766,10 +2904,13 @@ def _latent_steps(kind, data, codec, ckpt_dir, card):
         loop.step += 1
         losses.append(metrics["loss"].float().cpu().tolist())
     launches, routes = read_counts()
+    back_to_back = None
+    if kind == "pre_encoded":
+        back_to_back = BACK_TO_BACK["latent_pre_encoded"] = _loop_back_to_back(loop)
     row = {"phase": "latent_train", "card": card, "data": kind, "B": LATENT_B, "K": LATENT_K,
            "dtype": cfg["compute_dtype"], "steps": steps, "step_kind": loop.step_kind,
-           "ms_per_step": [x * 1e3 for x in step_s], "losses": losses,
-           "launches": launches, "routes": routes,
+           "ms_per_step": [x * 1e3 for x in step_s], "back_to_back": back_to_back,
+           "losses": losses, "launches": launches, "routes": routes,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     if isinstance(codec, TimedEncode):
         row["frames_px"] = 256
@@ -2778,7 +2919,238 @@ def _latent_steps(kind, data, codec, ckpt_dir, card):
     if not all(math.isfinite(x) for step in losses for x in step):
         raise RuntimeError(f"latent training ({kind}): non-finite loss {losses}")
     _check_launches(launches, routes, steps, LATENT_PER_FORWARD, latent_route_counts(_sms()))
+    if back_to_back is not None:
+        _check_no_host_sync(f"latent_train ({kind})", back_to_back)
     return launches, routes
+
+
+LATENT_DATA_DATASET = "carla_no_traffic_2x_encoded"
+# Frames of each fixture video: the first at CARLA's length, the rest short.
+LATENT_DATA_FRAMES = {"train": (1000, 100, 100), "test": (100,)}
+LATENT_DATA_SIZE = 128  # px, upsampled 2x to 256 for the VAE: 32x32 latents
+LATENT_DATA_CHUNK = 100  # frames per encode chunk (--chunk_size)
+LATENT_DATA_CPU_FRAMES = 8  # frames encoded on the card and on the CPU
+LATENT_DATA_STEPS = 4  # video_train steps on the encoded files
+
+
+def write_latent_carla_fixture(data_root, seed=40):
+    """The CARLA layout of ``LATENT_DATA_DATASET`` under ``data_root``
+    (datasets/carla/no-traffic-encoded): video_{train,test}.csv and seeded
+    uint8 (T, 128, 128, 3) ``.pt`` videos of ``LATENT_DATA_FRAMES``' lengths.
+    Returns the directory and the file names by split."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.data.datasets import video_data_paths_dict
+
+    root = os.path.join(data_root, video_data_paths_dict[LATENT_DATA_DATASET])
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    splits, i = {}, 0
+    for split, lengths in LATENT_DATA_FRAMES.items():
+        splits[split] = []
+        for T in lengths:
+            name = f"video_{i:05d}.pt"
+            video = rng.integers(0, 256, (T, LATENT_DATA_SIZE, LATENT_DATA_SIZE, 3), np.uint8)
+            torch.save(torch.from_numpy(video), os.path.join(root, name))
+            splits[split].append(name)
+            i += 1
+        with open(os.path.join(root, f"video_{split}.csv"), "w") as f:
+            f.write("".join(f"videos/{n}\n" for n in splits[split]))
+    return root, splits
+
+
+def phase_latent_data(ckpt_root, card):
+    """Phase 8 e, the latent data path, in a temporary DATA_ROOT: a seeded
+    CARLA-layout fixture (``LATENT_DATA_FRAMES``, 128 px) pre-encoded by
+    ``encode_latent.main`` on the card with the seeded VAE at its published
+    widths (--normalize, --chunk_size 100): seconds per video and ms per
+    frame, peak memory, the statistics, each file's shape, device-to-host
+    copies and host syncs of one video's encode, the pixel preparation on
+    the card bitwise numpy's, and 8 frames encoded on the card against the
+    CPU (relative L2 <= 1e-2). Then ``video_train.main`` with the reference's
+    latent command (and ``--T 100``) on the written files: a captured step of 7 + 7 + 8
+    launches per replay on the rules' routes, finite losses, the loop back
+    to back; and the back-to-back rows of phases 6, 6b and 8 d beside it.
+    Returns the training launch counts and routes by path."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfvdm_tpu_torch.config import latent_config
+    from lfvdm_tpu_torch.data.datasets import load_encoding_stats
+    from lfvdm_tpu_torch.models.vae import SVDVae
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.scripts import encode_latent, video_train
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_latent_data_", dir=ckpt_root)
+    saved_root = os.environ.get("DATA_ROOT")
+    os.environ["DATA_ROOT"] = os.path.join(tmp, "data")
+    encode, load_vae = encode_latent.encode_video, encode_latent.load_vae
+    try:
+        t0 = time.perf_counter()
+        root, splits = write_latent_carla_fixture(os.environ["DATA_ROOT"])
+        fixture_s = time.perf_counter() - t0
+
+        videos, vaes = [], []
+
+        def timed_encode(vae, video, chunk_size):
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = encode(vae, video, chunk_size)  # ends in its one copy to the host
+            s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            videos.append({"frames": len(video), "s": s, "ms_per_frame": s / len(video) * 1e3,
+                           "peak_gib": peak / 2**30,
+                           "peak_above_resident_gib": (peak - resident) / 2**30})
+            return out
+
+        def kept_vae(prefix, device):
+            vaes.append(load_vae(prefix, device))
+            return vaes[-1]
+
+        encode_latent.encode_video, encode_latent.load_vae = timed_encode, kept_vae
+        t0 = time.perf_counter()
+        stats = encode_latent.main(["--path", root, "--normalize",
+                                    "--chunk_size", str(LATENT_DATA_CHUNK)])
+        encode_s = time.perf_counter() - t0
+        vae = vaes[0]
+
+        shapes, train = {}, []
+        for split, names in splits.items():
+            for name in names:
+                z = torch.load(os.path.join(root, "encoded_" + name), weights_only=True).numpy()
+                shapes[name] = [split, str(z.dtype), list(z.shape), bool(np.isfinite(z).all())]
+                if split == "train":
+                    train.append(z.astype(np.float64))
+        train = np.concatenate(train)
+        train_mean, train_std = train.mean(axis=(0, 2, 3)), train.std(axis=(0, 2, 3))
+        del train
+        read_back = load_encoding_stats(LATENT_DATA_DATASET)
+
+        # One video's encode under the profiler: its copies to the host and
+        # host syncs.
+        test_video = torch.load(os.path.join(root, splits["test"][0]), weights_only=True).numpy()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            encode(vae, test_video, LATENT_DATA_CHUNK)
+        copies = {}
+        for e in prof.events():
+            if e.name.startswith("Memcpy"):
+                copies[e.name] = copies.get(e.name, 0) + 1
+        dtoh = sum(n for k, n in copies.items() if "DtoH" in k)
+        syncs = _host_syncs(prof, 1)
+
+        # The pixel preparation on the card against the JAX script's numpy
+        # expression, and 8 frames on the card against the CPU.
+        frames = test_video[:LATENT_DATA_CPU_FRAMES]
+        want = frames.astype(np.float32) / 255.0
+        want = np.repeat(np.repeat((2 * want - 1).transpose(0, 3, 1, 2), 2, axis=2), 2, axis=3)
+        table = torch.from_numpy(encode_latent.pixel_table()).cuda()
+        got = encode_latent.prepare_frames(torch.from_numpy(frames).cuda(), table).cpu().numpy()
+        prep_bitwise = bool(np.array_equal(got.view(np.uint32),
+                                           np.ascontiguousarray(want).view(np.uint32)))
+        card_z = encode(vae, frames, LATENT_DATA_CPU_FRAMES)
+        cpu_vae = SVDVae({k: v.cpu() for k, v in vae.state_dict().items()}, device="cpu")
+        t0 = time.perf_counter()
+        cpu_z = encode(cpu_vae, frames, LATENT_DATA_CPU_FRAMES)
+        cpu_s = time.perf_counter() - t0
+        card_vs_cpu = float(np.linalg.norm(card_z - cpu_z) / np.linalg.norm(cpu_z))
+        del cpu_vae, vae, vaes[:]
+        torch.cuda.empty_cache()
+
+        n_obs = sum(LATENT_DATA_FRAMES["train"]) * 32 * 32
+        row = {"phase": "latent_data_encode", "card": card, "fixture_s": fixture_s,
+               "videos": {split: list(n) for split, n in LATENT_DATA_FRAMES.items()},
+               "video_px": LATENT_DATA_SIZE, "vae_px": 2 * LATENT_DATA_SIZE,
+               "chunk_size": LATENT_DATA_CHUNK, "encode_main_s": encode_s,
+               "per_video": videos, "stats": {k: np.asarray(v).tolist() for k, v in stats.items()},
+               "n_obs_expected": n_obs, "files": shapes,
+               "normalized_train_mean": train_mean.tolist(),
+               "normalized_train_std": train_std.tolist(),
+               "one_video_copies": copies, "one_video_dtoh": dtoh, "one_video_host_syncs": syncs,
+               "pixels_bitwise_numpy": prep_bitwise,
+               "card_vs_cpu_rel_l2": card_vs_cpu, "cpu_frames": LATENT_DATA_CPU_FRAMES,
+               "cpu_s": cpu_s, "tf32_cudnn": torch.backends.cudnn.allow_tf32}
+        emit(row)
+        lengths = {n: T for split, Ts in LATENT_DATA_FRAMES.items()
+                   for n, T in zip(splits[split], Ts)}
+        bad = {n: v for n, v in shapes.items()
+               if v[1:] != ["float32", [lengths[n], 4, 32, 32], True]}
+        if bad:
+            raise RuntimeError(f"encoded files of the wrong dtype, shape or values: {bad}")
+        if int(stats["n_obs"]) != n_obs:
+            raise RuntimeError(f"n_obs {stats['n_obs']} != {n_obs}")
+        if read_back is None or not (np.array_equal(read_back["mean"], stats["mean"])
+                                     and np.array_equal(read_back["std"], stats["std"])):
+            raise RuntimeError("load_encoding_stats did not read the written statistics back")
+        if not (np.abs(train_mean).max() <= 1e-3 and np.abs(train_std - 1).max() <= 1e-3):
+            raise RuntimeError(f"the normalized train split has mean {train_mean}, "
+                               f"std {train_std}")
+        if dtoh != 1:
+            raise RuntimeError(f"one video's encode copied to the host {dtoh} times: {copies}")
+        if not prep_bitwise:
+            raise RuntimeError("the pixel preparation on the card is not numpy's bit for bit")
+        if not card_vs_cpu <= 1e-2:
+            raise RuntimeError(f"encode card vs CPU: relative L2 {card_vs_cpu} > 1e-2")
+
+        # Training on the written files with the reference's latent command,
+        # and --T 100: every window then has the short videos' length (a batch
+        # and its padding batch of unequal lengths do not mask together, in
+        # either package; CARLA's videos are all 1000 frames).
+        run_dir = os.path.join(tmp, "run")
+        argv = ["--dataset", LATENT_DATA_DATASET, "--T", str(min(LATENT_DATA_FRAMES["train"])),
+                "--batch_size", str(LATENT_B),
+                "--max_frames", str(LATENT_K), "--num_channels", "64", "--num_res_blocks", "1",
+                "--diffusion_space", "latent", "--max_steps", str(LATENT_DATA_STEPS),
+                "--save_interval", "0", "--sample_interval", "0", "--log_interval", "1",
+                "--checkpoint_dir", run_dir]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop = video_train.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches, routes = read_counts()
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        config = {k: loop.config[k] for k in latent_config()}
+        replays = [{name: p.delta.get((name, None), 0) for name in KERNEL_NAMES}
+                   for p in loop._programs.values()]
+        stats_used = [loop.config["enc_stats_mean"], loop.config["enc_stats_std"]]
+        loop.log_interval = 10**9  # no metric flush inside the timed steps
+        back_to_back = BACK_TO_BACK["latent_data"] = _loop_back_to_back(loop)
+        emit({"phase": "latent_data_train", "card": card, "steps": LATENT_DATA_STEPS,
+              "wall_s": train_s, "step_kind": loop.step_kind, "config": config,
+              "losses": losses, "launches": launches, "routes": routes,
+              "launches_per_replay": replays, "back_to_back": back_to_back})
+        emit({"phase": "train_loop_back_to_back", "card": card, **BACK_TO_BACK})
+        if loop.step_kind != "captured" or len(replays) != 1:
+            raise RuntimeError(f"the latent loop stepped {loop.step_kind} with {len(replays)} "
+                               "captured step shapes, not one")
+        if config != latent_config():
+            raise RuntimeError(f"the latent command gave {config}, not {latent_config()}")
+        if not np.allclose(stats_used, [stats["mean"], stats["std"]], rtol=1e-6, atol=0):
+            raise RuntimeError(f"the run's latent stats {stats_used} are not the written ones")
+        if len(losses) != LATENT_DATA_STEPS or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"latent data training losses {losses}")
+        if replays[0] != LATENT_PER_FORWARD:
+            raise RuntimeError(f"a replay launched {replays[0]}, not {LATENT_PER_FORWARD}")
+        _check_launches(launches, routes, LATENT_DATA_STEPS, LATENT_PER_FORWARD,
+                        latent_route_counts(_sms()))
+        _check_no_host_sync("latent_data_train", back_to_back)
+        del loop
+    finally:
+        encode_latent.encode_video, encode_latent.load_vae = encode, load_vae
+        if saved_root is None:
+            os.environ.pop("DATA_ROOT", None)
+        else:
+            os.environ["DATA_ROOT"] = saved_root
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"latent_data_train": (launches, routes)}
 
 
 def phase_latent(ckpt_root, card):
@@ -2798,10 +3170,11 @@ def phase_latent(ckpt_root, card):
         del model
         phase_vae_cpu(vae, card)
         train, train_replay = phase_latent_train(ckpt_root, vae, card)
-    del vae
-    torch.cuda.empty_cache()
+        del vae
+        torch.cuda.empty_cache()
+        data = phase_latent_data(ckpt_root, card)
     return {"latent_sample": sample, "latent_train": train, "latent_train_replay": train_replay,
-            "graphs_latent_video": graphs}
+            "graphs_latent_video": graphs, **data}
 
 # ---------------------------------------------------------------------------
 # Phase 9: the entry points — the video_sample and video_train CLIs

@@ -364,6 +364,32 @@ def log_loss_dict(diffusion, ts, losses: Dict[str, np.ndarray], weights: np.ndar
             logger.logkv_mean(f"{key}_q{quartile}", float(sub_loss))
 
 
+BATCH_DTYPES = {"x0": torch.float32, "frame_indices": torch.int64,
+                "obs_mask": torch.float32, "latent_mask": torch.float32}
+
+
+def place(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``a`` (a numpy array, or a tensor) as a ``dtype`` tensor on ``device``,
+    placed as the JAX loop's ``device_put`` places it: on a CUDA device the
+    host never waits for the card. The values are copied into a new
+    page-locked block of PyTorch's caching host allocator (a host copy: ``a``
+    may change as soon as this returns), and from there to the card with
+    ``non_blocking`` on the current stream, where the step that reads the
+    tensor runs. The allocator records an event on that copy and hands the
+    block out again only once the event has passed, which it checks by
+    query, never by waiting. Only a new block waits (``cudaHostAlloc``
+    lets the card drain first): once the allocator holds blocks for the
+    steps in flight, as after a loop's first log window, none is made. A
+    tensor already on a card, and any placement on the CPU, go through
+    ``torch.as_tensor`` as before (nothing is pinned)."""
+    if device.type != "cuda" or (isinstance(a, torch.Tensor) and a.device.type == "cuda"):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    source = torch.as_tensor(a)
+    staged = torch.empty(source.shape, dtype=dtype, pin_memory=True)
+    staged.copy_(source)
+    return staged.to(device, non_blocking=True)
+
+
 def _numpy(v) -> np.ndarray:
     return v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
@@ -391,7 +417,15 @@ class TrainLoop:
     ``run_step`` replays a captured step (``step_kind``) on one card and
     steps eagerly otherwise; each returns the step's metrics as tensors on
     the device, which are read on the host only at the log interval (and
-    the loss-aware schedule sampler's losses, after every step).
+    the loss-aware schedule sampler's losses, after every step). A step's
+    inputs are placed with no host wait (``place``), so on a card
+    ``run_step`` returns once the step is queued, as the JAX loop's
+    asynchronous dispatch does, and the host draws the next batch while the
+    card runs this one (a host two or three steps ahead waits in the graph
+    launch, for room in the launch queue). The logged ``timing/step_time``
+    (a log window's wall time over its steps, read before the flush's first
+    device read) and ``timing/host_time`` are therefore host time per step,
+    as in the JAX loop.
     """
 
     def __init__(
@@ -523,36 +557,34 @@ class TrainLoop:
         return np.asarray(next(self.data))
 
     def _prepare(self, batch1, batch2) -> Dict:
-        """Frames and masks of one step (numpy); with a codec, x0 is encoded
-        after the frames are chosen and stays a tensor on the device."""
+        """Frames and masks of one step (numpy); with a codec, x0 is placed
+        on the device (``place``) after the frames are chosen, encoded there
+        and stays a tensor on the device."""
         x0, fi, obs, lat = sample_training_batch(
             self.host_rng, batch1, self.max_frames,
             batch2=batch2 if self.pad_with_random_frames else None,
             pad_with_random_frames=self.pad_with_random_frames)
         x0 = x0.astype(np.float32)
         if self.codec is not None:
-            x0 = self.codec.encode(torch.as_tensor(x0, device=self.device))
+            x0 = self.codec.encode(place(x0, torch.float32, self.device))
         return {"x0": x0, "frame_indices": fi, "obs_mask": obs, "latent_mask": lat}
 
     def to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """A prepared batch as tensors on the training device."""
-        dev = self.device
-        return {"x0": torch.as_tensor(batch["x0"], dtype=torch.float32, device=dev),
-                "frame_indices": torch.as_tensor(batch["frame_indices"], dtype=torch.int64,
-                                                 device=dev),
-                "obs_mask": torch.as_tensor(batch["obs_mask"], dtype=torch.float32, device=dev),
-                "latent_mask": torch.as_tensor(batch["latent_mask"], dtype=torch.float32,
-                                               device=dev)}
+        """A prepared batch as tensors on the training device (``place``:
+        on a card the host does not wait for the copies)."""
+        return {name: place(batch[name], dtype, self.device)
+                for name, dtype in BATCH_DTYPES.items()}
 
     def next_step_inputs(self):
-        """Draw the next batch, its masks and its timesteps on the host.
-        Returns (device batch, t, weights, t as numpy, weights as numpy)."""
+        """Draw the next batch, its masks and its timesteps on the host, and
+        place them on the training device (``place``). Returns (device
+        batch, t, weights, t as numpy, weights as numpy)."""
         batch1 = self._next_batch()
         batch2 = self._next_batch() if self.pad_with_random_frames else batch1
         batch = self.to_device(self._prepare(batch1, batch2))
         t_np, w_np = self.schedule_sampler.sample(batch["x0"].shape[0], self.host_rng)
-        t = torch.as_tensor(t_np, dtype=torch.int64, device=self.device)
-        w = torch.as_tensor(w_np, dtype=torch.float32, device=self.device)
+        t = place(t_np, torch.int64, self.device)
+        w = place(w_np, torch.float32, self.device)
         return batch, t, w, t_np, w_np
 
     # ---- main loop ----
