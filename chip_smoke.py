@@ -48,9 +48,15 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                same video without reuse printed; one full and one reuse call
                timed (device busy and wall ms per call); b. the reuse call
                kernel vs plain on the same features (relative L2 <= 5e-3);
-               c. sample_window_attn over 8 steps: eight finite heatmaps of
-               the JAX shapes, 0 + 0 + 10 launches per call (the attention
-               weights come from the einsum form). d. runs inside phase 9's
+               c. sample_window_attn over 8 steps through its program (one
+               CUDA graph of a step memoized per ("attn", shapes), the maps
+               summed in static accumulators) and through the eager loop
+               (graphs=False) from the same seed: the window and eight
+               finite heatmaps of the JAX shapes bitwise, 0 + 0 + 10 launches
+               per call (the attention weights come from the einsum form) in
+               the first call and under replay alone, ms per call both ways
+               in turns (CUDA events and wall), device busy per call and the
+               idle share both ways (profiler). d. runs inside phase 9's
                fixture: video_sample --encoder_reuse 3 and --sampling_scheme
                adaptive-autoreg (LPIPS embedder on the card), and the
                embedder's ms per batch of 80 frames at 128 px.
@@ -59,13 +65,18 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                ddim25, eta 0: export seconds and artifact bytes; b. that
                artifact and params.npz served from a seed in a fresh subprocess
                that imports lfvdm_tpu_torch.serving and none of the model,
-               config, diffusion or sampling modules: load seconds, ms per
-               window and per step (CUDA events, wall), 25 x (7 + 7 + 10)
-               launches on "mma"/"bulk"; c. the live window (VideoSampler DDIM,
-               the same weights and initial noise) against the served one
-               (relative L2 <= 5e-3), both timed in turns; d. an ancestral
-               artifact (respacing 50): one finite window of the right shape,
-               50 x (7 + 7 + 10) launches; e. after phase 6, on its run
+               config, diffusion or sampling modules, with this process's
+               TF32 settings: captured (one CUDA graph of the loaded step,
+               replayed per step) and eagerly (graphs=False), bitwise; load
+               and capture seconds, the params copy's ms, the pool's bytes,
+               ms per window and per step both ways in turns (CUDA events,
+               wall), 25 x (7 + 7 + 10) launches on "mma"/"bulk" in the first
+               call and under replay alone; c. the live window (VideoSampler
+               DDIM, the same weights and initial noise) against the served
+               one, bitwise, both timed in turns; d. an ancestral artifact
+               (respacing 50) served captured: one finite window of the right
+               shape, 50 x (7 + 7 + 10) launches, bitwise its eager loop; the
+               latent artifact in phase 8 a'; e. after phase 6, on its run
                directory (phase_serve_params): export_params writes the EMA
                weights as a flax .msgpack, and video_sample's loader reads it
                into a U-Net whose output equals the run directory's, bitwise.
@@ -81,8 +92,9 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                the pool's bytes and the peak; a ddim25 (flagship) and ddim10
                (latent) window's device busy time and idle share, eager and
                captured, from the profiler, which must name each kernel
-               inside the replays. Phase 9's vis sampling must leave no pool
-               reserved, against a control that holds its sampler.
+               inside the replays. Phase 9's vis sampler keeps one sampler
+               per EMA rate: its second call replays the first's program
+               (bitwise, no new memory), and its release frees the memo.
   6. train   — the training path: TrainLoop on the flagship config (B=2, K=20,
                bf16) over the synthetic dataset at 128 px (prefetched on a
                thread): warm-up steps, then timed steps (finite losses,
@@ -143,6 +155,11 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                            f32), fused vs unfused skip projection, 7 + 7 + 8
                            launches per forward on the routes the shape rules
                            (_spatial_route, skipconv.plan) give;
+               a'. serve — the latent DDIM (ddim25) artifact served captured
+                           in this process against the live captured window
+                           and against its eager loop, bitwise; 25 x
+                           (7 + 7 + 8) launches under replay; ms per step of
+                           the three in turns;
                b. sample — VideoSampler(codec=PreEncodedLatentCodec(vae=SVDVae))
                            samples a 20-frame latent video (autoreg, n_obs 2,
                            max_frames 5, step 2, ancestral, 50 steps) and decodes
@@ -188,7 +205,8 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                   steps served by the native loader, finite losses, a run
                   directory with config.json, the parameters and the EMA; the
                   vis sampler (make_sample_fn, 25 ancestral steps; gifs where
-                  PIL is present) on the trained loop;
+                  PIL is present) on the trained loop, called twice: the
+                  second call replays the memo's program, bitwise;
                c. video_sample on the run directory's raw weights, one window;
                d. ms per batch of the native, the Python-thread and the
                   synchronous loaders, and the train step's host batch time with
@@ -1148,25 +1166,55 @@ def phase_reuse(cfg, model, card):
     if not rel_plain <= 5e-3:
         raise RuntimeError(f"reuse call kernel vs plain relative L2 {rel_plain} > 5e-3")
 
-    # c. The heatmap sampler over one window.
+    # c. The heatmap sampler over one window: its program captured (the
+    # first call), replayed, and against the eager loop from the same seed.
     diff8 = create_diffusion(dict(cfg, timestep_respacing=ATTN_RESPACING))
     attn_sampler = VideoSampler(model, diff8)
+    attn_eager = VideoSampler(model, diff8, graphs=False)
+    attn_args = (kw["x0"], kw["frame_indices"], kw["obs_mask"], kw["latent_mask"])
+
+    def attn_window(sampler):
+        return sampler.sample_window_attn(
+            *attn_args, generator=torch.Generator(device="cuda").manual_seed(43))
+
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img, maps = attn_sampler.sample_window_attn(
-        kw["x0"], kw["frame_indices"], kw["obs_mask"], kw["latent_mask"], generator=gen)
+    img, maps = attn_window(attn_sampler)
     torch.cuda.synchronize()
     attn_wall = time.perf_counter() - t0
     launches, routes = read_counts()
     counts["attn_window"] = (launches, routes)
     calls = attn_sampler.model_calls
+    want_img, want_maps = attn_window(attn_eager)
+    bitwise = {"img": bool(torch.equal(img, want_img)),
+               **{tag: bool(torch.equal(m, want_maps[tag])) for tag, m in maps.items()}}
+    attn_sampler.model_calls = 0
+    ops.reset_launch_counts()
+    attn_window(attn_sampler)
+    torch.cuda.synchronize()
+    replay = read_counts()
+    counts["attn_window_replay"] = replay
+    replay_calls = attn_sampler.model_calls
+    turns = _event_and_wall_ms_in_turns({"eager": lambda: attn_window(attn_eager),
+                                         "captured": lambda: attn_window(attn_sampler)})
+    busy = {side: _device_ms(lambda s=s: attn_window(s), n=2) / calls
+            for side, s in (("eager", attn_eager), ("captured", attn_sampler))}
+    (program,) = attn_sampler._programs.values()
     shapes = {tag: list(m.shape) for tag, m in maps.items()}
+    per_call = {side: {k: [x / calls for x in v] for k, v in t.items()}
+                for side, t in turns.items()}
     emit({"phase": "attn_window", "card": card, "respacing": ATTN_RESPACING,
           "model_calls": calls, "launches": launches, "routes": routes,
           "launches_per_call": {k: v / calls for k, v in launches.items()},
-          "wall_s": attn_wall, "ms_per_model_call": attn_wall / calls * 1e3, "maps": shapes,
-          "map_sums": {tag: m.sum().item() for tag, m in maps.items()}})
+          "replay_launches_per_call": {k: v / calls for k, v in replay[0].items()},
+          "replay_routes": replay[1], "captured_vs_eager_bitwise": bitwise,
+          "first_call_wall_s": attn_wall, "capture_s": program.capture_s,
+          "ms_per_model_call": per_call,
+          "device_busy_ms_per_model_call": busy,
+          "idle_share": {side: 1 - busy[side] / min(per_call[side]["wall_ms"])
+                         for side in busy},
+          "maps": shapes, "map_sums": {tag: m.sum().item() for tag, m in maps.items()}})
     tokens = (S // min(model.attention_resolutions)) ** 2  # the first attention layer's
     want = {f"attn/q{q}-{kind}": [B, T, T] if kind == "temporal" else [B, tokens, tokens]
             for q in range(4) for kind in ("temporal", "spatial")}
@@ -1174,7 +1222,12 @@ def phase_reuse(cfg, model, card):
         raise RuntimeError(f"heatmaps {shapes} != {want}")
     if not (torch.isfinite(img).all() and all(torch.isfinite(m).all() for m in maps.values())):
         raise RuntimeError("the heatmap window or its maps are not finite")
+    if not all(bitwise.values()):
+        raise RuntimeError(f"the captured heatmap window differs from the eager one: {bitwise}")
+    if replay_calls != calls or calls != diff8.num_timesteps:
+        raise RuntimeError(f"heatmap windows of {calls} and {replay_calls} calls")
     _check_launches(launches, routes, calls, ATTN_PER_FORWARD)
+    _check_launches(*replay, calls, ATTN_PER_FORWARD)
     return counts
 
 
@@ -1328,10 +1381,13 @@ SERVE_TIMED_WINDOWS = 2
 SERVE_BLOCKED = ("lfvdm_tpu_torch.models", "lfvdm_tpu_torch.config", "lfvdm_tpu_torch.sampling",
                  "lfvdm_tpu_torch.diffusion", "lfvdm_tpu", "jax", "flax")
 # The serving process: imports lfvdm_tpu_torch.serving and nothing of the
-# model's code (a finder refuses it), loads params.npz and sampler.pt2 from
-# the directory argv[1] names, samples the window of window.npz from its
-# seed (launches counted from 0 just before), then times SERVE_TIMED_WINDOWS
-# more; prints one JSON line.
+# model's code (a finder refuses it), takes the parent's TF32 settings
+# (argv[2:4]: cuDNN's and cuBLAS's, "1" on), loads params.npz and
+# sampler.pt2 from the directory argv[1] names, copies the
+# params in (timed), samples the window of window.npz from its seed captured
+# (launches counted from 0 just before; the first call captures), then once
+# more with replays alone, then eagerly (graphs=False); times the two ways in
+# turns; prints one JSON line.
 SERVE_CHILD = r"""
 import importlib.abc, json, sys, time
 BLOCKED = {blocked!r}
@@ -1345,41 +1401,67 @@ sys.meta_path.insert(0, Block())
 import numpy as np
 import torch
 d = sys.argv[1]
+torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
+    flag == "1" for flag in sys.argv[2:4])
 t0 = time.perf_counter()
 from lfvdm_tpu_torch import serving
 from lfvdm_tpu_torch.ops import attention as ops
 params = serving.load_params_npz(d + "/params.npz", device="cuda")
 with open(d + "/sampler.pt2", "rb") as f:
     run = serving.load_window_sampler(f.read())
+eager = serving.ServedWindow(run.program, run.meta, graphs=False)
 torch.cuda.synchronize()
 load_s = time.perf_counter() - t0
 w = np.load(d + "/window.npz")
 win = [torch.from_numpy(w[k]).cuda() for k in ("x0", "frame_indices", "obs_mask", "latent_mask")]
 seed = int(w["seed"])
+def counts():
+    return ops.launch_counts(), {{n: dict(getattr(ops, n).launches_by_route)
+                                 for n in ("spatial_attention", "skip_conv_stats")}}
+def event_ms(fn):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+run.load_params(params)  # the owned copy, made once
+torch.cuda.synchronize()
+copy_ms = [event_ms(lambda: run.load_params(params))[0] for _ in range(3)]
+mem0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
 ops.reset_launch_counts()
 torch.cuda.synchronize()
 t0 = time.perf_counter()
 out = run(params, *win, seed)
 torch.cuda.synchronize()
 first_s = time.perf_counter() - t0
-launches = ops.launch_counts()
-routes = {{n: dict(getattr(ops, n).launches_by_route)
-          for n in ("spatial_attention", "skip_conv_stats")}}
+mem1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+first = counts()
 np.save(d + "/served.npy", out.cpu().numpy())
-device_ms, wall_ms = [], []
-for _ in range({timed}):
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    run(params, *win, seed)
-    end.record()
-    torch.cuda.synchronize()
-    wall_ms.append((time.perf_counter() - t0) * 1e3)
-    device_ms.append(start.elapsed_time(end))
-print(json.dumps({{"load_s": load_s, "first_window_s": first_s, "launches": launches,
-                  "routes": routes, "steps": run.meta["num_timesteps"],
-                  "window_device_ms": device_ms, "window_wall_ms": wall_ms,
+ops.reset_launch_counts()
+again = run(params, *win, seed)
+torch.cuda.synchronize()
+replay = counts()
+ref = eager(params, *win, seed)
+times = {{"captured": {{"device_ms": [], "wall_ms": []}}, "eager": {{"device_ms": [], "wall_ms": []}}}}
+event_ms(lambda: eager(params, *win, seed))
+for side in [x for i in range({timed}) for x in [("captured", "eager"), ("eager", "captured")][i % 2]]:
+    fn = run if side == "captured" else eager
+    dev, wall = event_ms(lambda: fn(params, *win, seed))
+    times[side]["device_ms"].append(dev)
+    times[side]["wall_ms"].append(wall)
+print(json.dumps({{"tf32": [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32],
+                  "load_s": load_s, "first_window_s": first_s, "capture_s": run.capture_s,
+                  "launches": first[0], "routes": first[1], "replay_launches": replay[0],
+                  "replay_routes": replay[1], "steps": run.meta["num_timesteps"],
+                  "captured_vs_eager_bitwise": bool(torch.equal(out, ref)),
+                  "replay_bitwise": bool(torch.equal(again, out)),
+                  "params_copy_ms": copy_ms,
+                  "pool_and_buffers_allocated_bytes": mem1[0] - mem0[0],
+                  "pool_and_buffers_reserved_bytes": mem1[1] - mem0[1],
+                  "window_ms": times,
                   "blocked_imported": sorted(m for m in sys.modules if blocked(m))}}))
 """
 
@@ -1415,14 +1497,19 @@ def phase_serve(cfg, model, card, tmp_root):
          artifact's bytes;
       b. the artifact and params.npz served in a fresh subprocess that imports
          lfvdm_tpu_torch.serving and none of the model, config, diffusion or
-         sampling modules: one window from a seed, 25 x (7 + 7 + 10) launches on
-         "mma"/"bulk", load seconds, ms per window and per step (CUDA events
-         and wall);
-      c. the live window (VideoSampler DDIM, the same weights and initial
-         noise) against the served one (relative L2 <= 5e-3), and the two
-         timed in turns in this process;
-      d. an ancestral artifact (respacing 50): one window, finite, the
-         window's shape, 50 x (7 + 7 + 10) launches.
+         sampling modules, with this process's TF32 settings: one window from
+         a seed captured (one CUDA graph of the loaded step, replayed per
+         step), 25 x (7 + 7 + 10) launches on "mma"/"bulk" in the first call
+         and in a call of replays alone; the eager loop (graphs=False) from
+         the same seed, bitwise; load and capture seconds, the params copy's
+         ms, the pool's bytes, ms per window and per step both ways (CUDA
+         events and wall, in turns);
+      c. the live window (VideoSampler DDIM, captured, the same weights and
+         initial noise) against the served one: bitwise, across the two
+         processes and within this one; the two timed in turns here;
+      d. an ancestral artifact (respacing 50) served captured: one finite
+         window of the right shape, 50 x (7 + 7 + 10) launches, bitwise its
+         eager loop.
     Returns the launch counts and routes by path."""
     import numpy as np
     import torch
@@ -1446,7 +1533,9 @@ def phase_serve(cfg, model, card, tmp_root):
     blob = serving.export_window_sampler(model, ddim, params, use_ddim=True, eta=0.0, **shape)
     export_s = time.perf_counter() - t0
 
-    # b. Serve it in a fresh process.
+    # b. Serve it in a fresh process with this one's TF32 settings.
+    tf32 = [str(int(flag)) for flag in (torch.backends.cudnn.allow_tf32,
+                                        torch.backends.cuda.matmul.allow_tf32)]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=tmp_root)
     try:
         with open(os.path.join(tmp, "sampler.pt2"), "wb") as f:
@@ -1457,7 +1546,7 @@ def phase_serve(cfg, model, card, tmp_root):
                                                       "latent_mask")})
         child = subprocess.run(
             [sys.executable, "-c", SERVE_CHILD.format(blocked=SERVE_BLOCKED,
-                                                      timed=SERVE_TIMED_WINDOWS), tmp],
+                                                      timed=SERVE_TIMED_WINDOWS), tmp, *tf32],
             cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
             timeout=600)
         if child.returncode != 0:
@@ -1468,6 +1557,7 @@ def phase_serve(cfg, model, card, tmp_root):
         shutil.rmtree(tmp, ignore_errors=True)
     steps = served_row["steps"]
     counts["serve"] = (served_row["launches"], served_row["routes"])
+    counts["serve_replay"] = (served_row["replay_launches"], served_row["replay_routes"])
 
     # c. The live window from the same seed (so the same initial noise), and
     # the served and live windows timed in turns in this process.
@@ -1480,11 +1570,12 @@ def phase_serve(cfg, model, card, tmp_root):
     run = serving.load_window_sampler(blob)
     with torch.no_grad():
         ref = live()
+        here = run(params, *window, SERVE_SEED)
         rel = ((served - ref).norm() / ref.norm()).item()
         turns = _event_and_wall_ms_in_turns(
             {"served": lambda: run(params, *window, SERVE_SEED), "live": live})
 
-    # d. An ancestral artifact, one window.
+    # d. An ancestral artifact, one window captured, then its eager loop.
     ancestral = create_diffusion(dict(cfg, timestep_respacing=SERVE_ANCESTRAL_RESPACING))
     t0 = time.perf_counter()
     blob_a = serving.export_window_sampler(model, ancestral, params, **shape)
@@ -1498,25 +1589,36 @@ def phase_serve(cfg, model, card, tmp_root):
     anc_s = time.perf_counter() - t0
     launches_a, routes_a = read_counts()
     counts["serve_ancestral"] = (launches_a, routes_a)
+    want_a = serving.ServedWindow(run_a.program, run_a.meta, graphs=False)(
+        params, *window, SERVE_SEED + 1)
 
     per_step = {name: {k: [x / steps for x in v] for k, v in t.items()}
                 for name, t in turns.items()}
+    child_keys = ("tf32", "load_s", "first_window_s", "capture_s", "params_copy_ms",
+                  "pool_and_buffers_allocated_bytes", "pool_and_buffers_reserved_bytes",
+                  "window_ms", "captured_vs_eager_bitwise", "replay_bitwise",
+                  "blocked_imported")
     row = {"phase": "serve", "card": card, "respacing": SERVE_RESPACING, "sampler": "ddim",
            "window": [B, K, C, S, S], "export_s": export_s, "artifact_bytes": len(blob),
            "params_bytes": sum(p.numel() * p.element_size() for p in params.values()),
-           "serving_process": {k: served_row[k] for k in ("load_s", "first_window_s",
-                                                          "window_device_ms", "window_wall_ms",
-                                                          "blocked_imported")},
+           "serving_process": {k: served_row[k] for k in child_keys},
            "serving_process_ms_per_step": {
-               "device": [x / steps for x in served_row["window_device_ms"]],
-               "wall": [x / steps for x in served_row["window_wall_ms"]]},
-           "launches": served_row["launches"], "routes": served_row["routes"], "steps": steps,
-           "served_vs_live_rel_l2": rel, "in_turns_ms_per_window": turns,
+               side: {k: [x / steps for x in v] for k, v in t.items()}
+               for side, t in served_row["window_ms"].items()},
+           "launches": served_row["launches"], "routes": served_row["routes"],
+           "replay_launches_per_step": {k: v / steps
+                                        for k, v in served_row["replay_launches"].items()},
+           "steps": steps, "served_vs_live_bitwise": bool(torch.equal(served, ref)),
+           "served_vs_live_rel_l2": rel,
+           "in_process_served_vs_live_bitwise": bool(torch.equal(here, ref)),
+           "in_process_capture_s": run.capture_s, "in_turns_ms_per_window": turns,
            "in_turns_ms_per_step": per_step, "max_abs_live": ref.abs().max().item()}
     emit(row)
     emit({"phase": "serve_ancestral", "card": card, "respacing": SERVE_ANCESTRAL_RESPACING,
-          "export_s": export_a_s, "artifact_bytes": len(blob_a), "window_s": anc_s,
-          "steps": run_a.meta["num_timesteps"], "launches": launches_a, "routes": routes_a,
+          "export_s": export_a_s, "artifact_bytes": len(blob_a), "first_window_s": anc_s,
+          "capture_s": run_a.capture_s, "steps": run_a.meta["num_timesteps"],
+          "launches": launches_a, "routes": routes_a,
+          "captured_vs_eager_bitwise": bool(torch.equal(out_a, want_a)),
           "max_abs": out_a.abs().max().item()})
     if served_row["blocked_imported"]:
         raise RuntimeError(f"the serving process imported {served_row['blocked_imported']}")
@@ -1524,14 +1626,83 @@ def phase_serve(cfg, model, card, tmp_root):
         raise RuntimeError(f"the artifacts run {steps} and {run_a.meta['num_timesteps']} steps, "
                            "not 25 and 50")
     _check_launches(served_row["launches"], served_row["routes"], steps)
+    _check_launches(served_row["replay_launches"], served_row["replay_routes"], steps)
     _check_launches(launches_a, routes_a, 50)
     if not (torch.isfinite(served).all() and ref.abs().max().item() > 0):
         raise RuntimeError("the served window is not finite, or the live one vacuous")
-    if not rel <= 5e-3:
-        raise RuntimeError(f"served vs live window relative L2 {rel} > 5e-3")
+    if not (served_row["captured_vs_eager_bitwise"] and served_row["replay_bitwise"]):
+        raise RuntimeError("the serving process's captured window differs from its eager loop "
+                           "or from its own replay")
+    if not (row["served_vs_live_bitwise"] and row["in_process_served_vs_live_bitwise"]):
+        raise RuntimeError(f"served vs live window: not bitwise (relative L2 {rel}; in this "
+                           f"process bitwise: {row['in_process_served_vs_live_bitwise']})")
     if tuple(out_a.shape) != (B, K, C, S, S) or not torch.isfinite(out_a).all():
         raise RuntimeError(f"the ancestral window is {tuple(out_a.shape)} or not finite")
+    if not torch.equal(out_a, want_a):
+        raise RuntimeError("the captured ancestral window differs from its eager loop")
     return counts
+
+
+def phase_serve_latent(cfg, model, card):
+    """The served window on the latent config (B=1, K=5, 32x32x4, bf16), in
+    this process: the DDIM (ddim25, eta 0) artifact served captured against
+    the live captured window (VideoSampler, the same seed): bitwise; against
+    its eager loop (graphs=False): bitwise; 25 x (7 + 7 + 8) launches on the
+    rules' routes in a call of replays alone; ms per step of the three, in
+    turns (CUDA events and wall). Returns the launch counts and routes by
+    path."""
+    import torch
+
+    from lfvdm_tpu_torch import serving
+    from lfvdm_tpu_torch.config import create_diffusion
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.sampling.driver import VideoSampler
+
+    B, K, C, S = LATENT_B, LATENT_K, cfg["in_channels"], cfg["image_size"]
+    params = dict(model.state_dict())
+    _, _, kw = window_inputs(cfg, "cuda", torch.Generator(device="cuda").manual_seed(63),
+                             **LATENT_WINDOW)
+    window = [kw[k] for k in ("x0", "frame_indices", "obs_mask", "latent_mask")]
+    ddim = create_diffusion(dict(cfg, timestep_respacing=SERVE_RESPACING))
+    t0 = time.perf_counter()
+    blob = serving.export_window_sampler(model, ddim, params, use_ddim=True, eta=0.0,
+                                         batch_size=B, max_frames=K, in_channels=C,
+                                         image_size=S)
+    export_s = time.perf_counter() - t0
+    run = serving.load_window_sampler(blob)
+    eager = serving.ServedWindow(run.program, run.meta, graphs=False)
+    live_sampler = VideoSampler(model, ddim, use_ddim=True, eta=0.0)
+    fns = {"served": lambda: run(params, *window, SERVE_SEED),
+           "served_eager": lambda: eager(params, *window, SERVE_SEED),
+           "live": lambda: live_sampler.sample_window(
+               *window, generator=torch.Generator(device="cuda").manual_seed(SERVE_SEED))}
+    with torch.no_grad():
+        served = fns["served"]()  # captures
+        ops.reset_launch_counts()
+        again = fns["served"]()
+        torch.cuda.synchronize()
+        launches, routes = read_counts()
+        live, served_eager = fns["live"](), fns["served_eager"]()
+        turns = _event_and_wall_ms_in_turns(fns)
+    steps = run.meta["num_timesteps"]
+    row = {"phase": "serve_latent", "card": card, "respacing": SERVE_RESPACING,
+           "window": [B, K, C, S, S], "export_s": export_s, "artifact_bytes": len(blob),
+           "capture_s": run.capture_s, "steps": steps, "launches": launches, "routes": routes,
+           "served_vs_live_bitwise": bool(torch.equal(served, live)),
+           "served_vs_eager_bitwise": bool(torch.equal(served, served_eager)),
+           "replay_bitwise": bool(torch.equal(again, served)),
+           "served_vs_live_rel_l2": _rel_l2_tensors(served, live),
+           "ms_per_step": {name: {k: [x / steps for x in v] for k, v in t.items()}
+                           for name, t in turns.items()},
+           "max_abs_live": live.abs().max().item()}
+    emit(row)
+    if not (torch.isfinite(served).all() and row["max_abs_live"] > 0):
+        raise RuntimeError("the latent served window is not finite, or the live one vacuous")
+    if not (row["served_vs_live_bitwise"] and row["served_vs_eager_bitwise"]
+            and row["replay_bitwise"]):
+        raise RuntimeError(f"latent served window: not bitwise ({row})")
+    _check_launches(launches, routes, steps, LATENT_PER_FORWARD, latent_route_counts(_sms()))
+    return {"serve_latent_replay": (launches, routes)}
 
 
 def phase_serve_params(ckpt_dir, card):
@@ -3163,6 +3334,7 @@ def phase_latent(ckpt_root, card):
     cfg, model, diffusion = latent_model("cuda")
     phase_unet(cfg, model, latent=True)
     phase_profile(cfg, model, forwards=10, path="latent", window=LATENT_WINDOW)
+    served = phase_serve_latent(cfg, model, card)
     with torch_tf32_defaults():
         vae = SVDVae(seed=0, device="cuda")
         sample = phase_latent_sample(cfg, model, diffusion, vae, card)
@@ -3174,7 +3346,7 @@ def phase_latent(ckpt_root, card):
         torch.cuda.empty_cache()
         data = phase_latent_data(ckpt_root, card)
     return {"latent_sample": sample, "latent_train": train, "latent_train_replay": train_replay,
-            "graphs_latent_video": graphs, **data}
+            "graphs_latent_video": graphs, **served, **data}
 
 # ---------------------------------------------------------------------------
 # Phase 9: the entry points — the video_sample and video_train CLIs
@@ -3299,17 +3471,14 @@ def phase_cli(ckpt_root, card):
     run directory's raw weights; then the loaders' cost. Every model call
     launches 7 + 7 + 10 kernels on the "mma" and "bulk" routes. Returns the
     launch counts and routes by path."""
-    import types
-
     import numpy as np
     import torch
 
-    from lfvdm_tpu_torch.config import create_diffusion, flagship_config
+    from lfvdm_tpu_torch.config import flagship_config
     from lfvdm_tpu_torch.data import datasets as data
     from lfvdm_tpu_torch.data.native_loader import native_loader_available, native_loader_error
     from lfvdm_tpu_torch.ops import attention as ops
     from lfvdm_tpu_torch.scripts import video_sample, video_train
-    from lfvdm_tpu_torch.training.vis_sampling import make_sample_fn
 
     if not native_loader_available():
         raise RuntimeError(f"the native loader did not build: {native_loader_error()}")
@@ -3389,46 +3558,8 @@ def phase_cli(ckpt_root, card):
         # The vis sampler on the trained loop (the 4-step run never reaches
         # its sample interval), with a 25-step schedule instead of the
         # training one's 1000.
-        gifs = pil_available()
         vis_batch = np.stack([test[i] for i in range(FLAGSHIP_B)])  # T > K frames
-        view = types.SimpleNamespace(
-            model=loop.model, diffusion=create_diffusion(dict(loop.config, timestep_respacing="25")),
-            state=loop.state, max_frames=FLAGSHIP_K, codec=loop.codec, device=loop.device,
-            step=loop.step, ema_params=loop.ema_params, sampling_model=loop.sampling_model)
-        ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        train_peak = torch.cuda.max_memory_allocated()
-        torch.cuda.empty_cache()  # reserved bytes then count live blocks' segments only
-        mem_before = _mem()
-        torch.cuda.reset_peak_memory_stats()
-        vids = make_sample_fn(vis_batch, out_dir=os.path.join(run_dir, "vis") if gifs else None,
-                              seed=0)(view)
-        torch.cuda.synchronize()
-        vis_peak = torch.cuda.max_memory_allocated()
-        torch.cuda.empty_cache()
-        mem_after = _mem()
-        launches, routes = read_counts()
-        counts["cli_vis"] = (launches, routes)
-        held = _reserved_by_held_vis_sampler(vis_batch, view)
-        written = sorted(os.listdir(os.path.join(run_dir, "vis"))) if gifs else []
-        emit({"phase": "cli_vis", "card": card, "pil": gifs, "gifs": written,
-              "videos": list(vids.shape), "launches": launches, "routes": routes,
-              "train_peak_gib": train_peak / 2**30, "vis_peak_gib": vis_peak / 2**30,
-              "allocated_before_gib": mem_before[0] / 2**30,
-              "allocated_after_gib": mem_after[0] / 2**30,
-              "reserved_before_gib": mem_before[1] / 2**30,
-              "reserved_after_gib": mem_after[1] / 2**30,
-              "held_sampler_reserved_gib": held / 2**30,
-              "note": None if gifs else "PIL is absent: make_sample_fn ran with out_dir=None"})
-        _check_launches(launches, routes, 25)
-        if mem_after[1] - mem_before[1] >= VIS_HELD_LIMIT:
-            raise RuntimeError(f"vis sampling left {mem_after[1] - mem_before[1]} bytes reserved: "
-                               "a captured window's pool or buffers held")
-        if held < 4 * VIS_HELD_LIMIT:
-            raise RuntimeError(f"a held vis sampler kept {held} bytes reserved: the limit "
-                               f"{VIS_HELD_LIMIT} is not well under one pool")
-        if gifs and len(written) != FLAGSHIP_B:
-            raise RuntimeError(f"vis sampling wrote {written}")
+        counts.update(_cli_vis(loop, vis_batch, run_dir, card))
 
         # Sampling from the new run directory's raw weights, one window.
         argv = [run_dir, "--ema_rate", "raw", "--T", "20", "--n_obs", "10",
@@ -3459,45 +3590,124 @@ def phase_cli(ckpt_root, card):
     return counts
 
 
-# What vis sampling may leave reserved: the schedule tables on its diffusion
-# and a stream's library workspaces, not a window's buffers and graph pool
-# (~GiB at the flagship's shape; phase 5d prints it). The control
-# (_reserved_by_held_vis_sampler) must keep at least 4x this.
+def _cli_vis(loop, vis_batch, run_dir, card):
+    """Phase 9 b's vis sampler (make_sample_fn, 25 ancestral steps) on the
+    trained loop, called twice: the first call makes the rate's sampler
+    (the memo: a replica, its window program, the graph pool) and captures;
+    the second replays it, bitwise, reserving nothing more; releasing the
+    sample function frees the memo. One training step (a replay) before the
+    first call and one while the memo is held give the step's peak memory
+    without and with the memo. Returns the launch counts and routes by
+    path."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.config import create_diffusion
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.training.vis_sampling import make_sample_fn
+
+    counts = {}
+    gifs = pil_available()
+    view = types.SimpleNamespace(
+        model=loop.model, diffusion=create_diffusion(dict(loop.config, timestep_respacing="25")),
+        state=loop.state, max_frames=FLAGSHIP_K, codec=loop.codec, device=loop.device,
+        step=loop.step, ema_params=loop.ema_params, sampling_model=loop.sampling_model)
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()  # reserved bytes then count live blocks' segments only
+    step_peak = _train_step_peak(loop)  # its launches come before the counts' reset
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    mem_before = _mem()
+    torch.cuda.reset_peak_memory_stats()
+    sample_fn = make_sample_fn(vis_batch, out_dir=os.path.join(run_dir, "vis") if gifs
+                               else None, seed=0)
+    t0 = time.perf_counter()
+    vids = sample_fn(view)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    vis_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    mem_memo = _mem()
+    launches, routes = read_counts()
+    counts["cli_vis"] = (launches, routes)
+    # The second call: the memo's sampler, replica and program, replayed.
+    ((_, sampler),) = sample_fn.samplers.items()
+    programs = list(sampler._programs.values())
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    again = sample_fn(view)
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    mem_second = _mem()
+    replay = read_counts()
+    counts["cli_vis_replay"] = replay
+    reused = list(sampler._programs.values()) == programs and len(sample_fn.samplers) == 1
+    step_peak_memo = _train_step_peak(loop)
+    del sample_fn, sampler, programs
+    torch.cuda.empty_cache()
+    mem_released = _mem()
+    written = sorted(os.listdir(os.path.join(run_dir, "vis"))) if gifs else []
+    emit({"phase": "cli_vis", "card": card, "pil": gifs, "gifs": written,
+          "videos": list(vids.shape), "launches": launches, "routes": routes,
+          "replay_launches": replay[0], "replay_routes": replay[1],
+          "first_call_s": first_s, "second_call_s": second_s,
+          "second_call_reused_the_memo": reused,
+          "second_call_bitwise": bool(np.array_equal(again, vids)),
+          "train_peak_gib": train_peak / 2**30, "vis_peak_gib": vis_peak / 2**30,
+          "reserved_before_gib": mem_before[1] / 2**30,
+          "memo_reserved_gib": (mem_memo[1] - mem_before[1]) / 2**30,
+          "second_call_added_reserved_gib": (mem_second[1] - mem_memo[1]) / 2**30,
+          "released_reserved_gib": (mem_released[1] - mem_before[1]) / 2**30,
+          "allocated_before_gib": mem_before[0] / 2**30,
+          "allocated_memo_gib": mem_memo[0] / 2**30,
+          "train_step_peak_allocated_gib": step_peak[0] / 2**30,
+          "train_step_peak_reserved_gib": step_peak[1] / 2**30,
+          "train_step_peak_allocated_memo_held_gib": step_peak_memo[0] / 2**30,
+          "train_step_peak_reserved_memo_held_gib": step_peak_memo[1] / 2**30,
+          "note": None if gifs else "PIL is absent: make_sample_fn ran with out_dir=None"})
+    _check_launches(launches, routes, 25)
+    _check_launches(*replay, 25)
+    if not (reused and np.array_equal(again, vids)):
+        raise RuntimeError("the second vis call did not replay the memo's program, or its "
+                           "videos differ from the first's")
+    if mem_second[1] - mem_memo[1] >= VIS_HELD_LIMIT:
+        raise RuntimeError(f"the second vis call reserved {mem_second[1] - mem_memo[1]} "
+                           "bytes more: a second sampler, replica or pool")
+    if mem_released[1] - mem_before[1] >= VIS_HELD_LIMIT:
+        raise RuntimeError(f"{mem_released[1] - mem_before[1]} bytes stayed reserved after "
+                           "the sample function was released")
+    if mem_memo[1] - mem_before[1] < 4 * VIS_HELD_LIMIT:
+        raise RuntimeError(f"the memo holds {mem_memo[1] - mem_before[1]} bytes: the limit "
+                           f"{VIS_HELD_LIMIT} is not well under one sampler's")
+    if gifs and len(written) != FLAGSHIP_B:
+        raise RuntimeError(f"vis sampling wrote {written}")
+    return counts
+
+
+def _train_step_peak(loop):
+    """Peak device bytes (allocated, reserved) of one more step of ``loop``
+    (a replay of its captured step, on its own data)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop.run_step()
+    loop.step += 1
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+
+
+# What may stay reserved past the vis memo (a second call, or the memo's
+# release): the schedule tables and a stream's library workspaces, not a
+# window's buffers, graph pool or replica (~GiB at the flagship's shape). The
+# memo itself must hold at least 4x this, or the check could not see one.
 VIS_HELD_LIMIT = 256 * 2**20
 
 
-def _reserved_by_held_vis_sampler(vis_batch, view):
-    """The control of the vis check: the bytes that stay reserved when vis
-    sampling's sampler is deliberately held (kept past the call with its
-    programs, graphs and pool), after the caching allocator's free blocks
-    are returned. The sampler is released before this returns."""
-    import torch
-
-    from lfvdm_tpu_torch.sampling import driver
-    from lfvdm_tpu_torch.training.vis_sampling import make_sample_fn
-
-    held, real = [], driver.VideoSampler
-
-    class Held(real):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            held.append(self)
-
-    driver.VideoSampler = Held
-    try:
-        torch.cuda.empty_cache()
-        before = torch.cuda.memory_reserved()
-        make_sample_fn(vis_batch, seed=0)(view)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        kept = torch.cuda.memory_reserved() - before
-        if len(held) != 1:
-            raise RuntimeError(f"vis sampling made {len(held)} samplers, not 1")
-    finally:
-        driver.VideoSampler = real
-        held.clear()
-        torch.cuda.empty_cache()
-    return kept
 CLI_REUSE = dict(T=40, n_obs=10, scheme="autoreg", respacing=REUSE_RESPACING)
 CLI_ADAPTIVE = dict(T=40, n_obs=10, scheme="adaptive-autoreg", respacing="ddim25")
 
@@ -3862,19 +4072,32 @@ def main() -> int:
         return 1
     sys.path.insert(0, here)
     t_start = time.perf_counter()
+    laps, last = {}, [t_start]
+
+    def lap(name):
+        """Seconds since the previous lap, under ``name`` in the done line."""
+        now = time.perf_counter()
+        laps[name], last[0] = now - last[0], now
 
     card = phase_device()
     phase_build()
+    lap("device_build")
     results = phase_kernels()
+    lap("kernels")
     cfg, model, diffusion = flagship_model("cuda")
     phase_unet(cfg, model)
     phase_profile(cfg, model)
+    lap("unet_profile")
     sample_launches, sample_routes, _ = phase_sample(cfg, model, diffusion)
+    lap("sample")
     reuse = phase_reuse(cfg, model, card)
+    lap("reuse")
     graphs = phase_graphs(cfg, model, card)
+    lap("graphs")
     ckpt_root = os.path.join(here, "checkpoints")
     os.makedirs(ckpt_root, exist_ok=True)
     serve = phase_serve(cfg, model, card, ckpt_root)
+    lap("serve")
     del model
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=ckpt_root)
     try:
@@ -3882,12 +4105,18 @@ def main() -> int:
         phase_serve_params(ckpt_dir, card)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    lap("train_serve_params")
     phase_train_parity()
+    lap("train_parity")
     parallel = phase_parallel(ckpt_root, card)
+    lap("parallel")
     latent = phase_latent(ckpt_root, card)
+    lap("latent")
     cli = phase_cli(ckpt_root, card)
+    lap("cli")
     with torch_tf32_defaults():
         phase_evals(ckpt_root, card)
+    lap("evals")
     launches = {"train": train_launches, "train_replay": train_replay[0],
                 "sample_video": sample_launches}
     routes = {"train": train_routes, "train_replay": train_replay[1],
@@ -3895,7 +4124,7 @@ def main() -> int:
     for path, (c, r) in {**reuse, **graphs, **serve, **parallel, **latent, **cli}.items():
         launches[path], routes[path] = c, r
     emit(kernels_line(results, launches, routes))
-    emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_start, "phase_s": laps})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

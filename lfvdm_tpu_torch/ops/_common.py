@@ -14,9 +14,11 @@ inputs that require grad, and ``torch.library.custom_op`` was dearer still
 Each wrapper counts the launches of its kernel (``<wrapper>.launches``, and
 ``<wrapper>.launches_by_route`` for a kernel with routes), registered here
 by ``counted``. ``launch_snapshot`` and ``add_launches`` read and add to
-every counter at once: a CUDA graph (``sampling/graphs.py``) records the
-counts its capture added, takes them back (a capture executes nothing) and
-adds them again at every replay, so the counters count kernels executed.
+every counter at once: ``capture_graph``, through which the sampling,
+serving and training programs capture their CUDA graphs, records the counts
+its capture added and takes them back (a capture executes nothing), and the
+program adds them again at every replay, so the counters count kernels
+executed.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from ..utils.device import capture_stream, current
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh: DType
 
@@ -78,6 +82,43 @@ def add_launches(delta: LaunchCounts, sign: int = 1):
             w.launches += sign * n
         else:
             w.launches_by_route[route] += sign * n
+
+
+def capture_graph(fn, device, *, pool=None, generators=()):
+    """Run ``fn()`` eagerly on ``device``'s capture stream, the warm-up, then
+    capture it there into a ``torch.cuda.CUDAGraph``, with ``device`` current
+    for both. The warm-up is the step's real execution: the kernels build on
+    first use, set their shared-memory attributes, and cuDNN picks its
+    algorithms. The capture executes nothing, so the launch counts it adds
+    are taken back and returned, for every replay to add again
+    (``add_launches``). ``pool``: the graph memory pool to capture into;
+    ``generators``: generators whose state the graph advances at each
+    replay (``register_generator_state``). Returns (graph,
+    the warm-up's result, the captured result, the launch counts a replay
+    adds). Raises if ``device`` is no CUDA device or the capture fails: no
+    caller falls back to eager on the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"CUDA graphs capture on a CUDA device, not {device}")
+    stream = capture_stream(device)
+    if stream.device != device:
+        raise RuntimeError(f"capture stream on {stream.device}, program on {device}")
+    with current(device):
+        main = torch.cuda.current_stream(device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            warm = fn()
+        main.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        for generator in generators:
+            graph.register_generator_state(generator)
+        before = launch_snapshot()
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
+            captured = fn()
+        delta = launch_delta(launch_snapshot(), before)
+        add_launches(delta, -1)
+    torch.cuda.synchronize(device)
+    return graph, warm, captured, delta
 
 
 def define(name: str, schema: str, *, cpu, cuda, fake, backward, setup_context):

@@ -173,12 +173,15 @@ class VideoSampler:
             return "dpm"
         return "reuse" if self.encoder_reuse > 1 else "ancestral"
 
-    def _sampler_for(self, replica: int, window) -> WindowProgram:
+    def _sampler_for(self, replica: int, window, mode: Optional[str] = None) -> WindowProgram:
         """The program of ``replica`` for this window's input shapes, made at
         the first window of those shapes (JAX's ``_sampler_for``, memoized
-        per call shape)."""
+        per call shape). ``mode="attn"``: the heatmap sampler's program,
+        memoized apart under an "attn" tag (JAX's ``("attn",) + shape``)."""
         dev = window["x0"].device
         key = (replica, str(dev)) + tuple(tuple(v.shape) for v in window.values())
+        if mode == "attn":
+            key = ("attn",) + key
         program = self._programs.get(key)
         if program is None:
             pool = None
@@ -187,9 +190,9 @@ class VideoSampler:
                 if pool is None:
                     pool = self._pools[dev] = torch.cuda.graph_pool_handle()
             program = self._programs[key] = WindowProgram(
-                self.replicas[replica], self.diffusion, window, mode=self._mode(), eta=self.eta,
-                clip_denoised=self.clip_denoised, encoder_reuse=self.encoder_reuse, owner=self,
-                pool=pool)
+                self.replicas[replica], self.diffusion, window, mode=mode or self._mode(),
+                eta=self.eta, clip_denoised=self.clip_denoised,
+                encoder_reuse=self.encoder_reuse, owner=self, pool=pool)
         return program
 
     def _window(self, replica, x0, frame_indices, obs_mask, latent_mask, generator, noise,
@@ -199,7 +202,8 @@ class VideoSampler:
         dev = next(model.parameters()).device
         kwargs, shape = self._window_args(x0, frame_indices, obs_mask, latent_mask, dev)
         if self.graphs:
-            return self._program_window(replica, kwargs, shape, generator, noise, step_noise)
+            return _run_program(self._sampler_for(replica, kwargs), kwargs, shape, generator,
+                                noise, step_noise)
         common = dict(device=dev, noise=noise, generator=generator,
                       clip_denoised=self.clip_denoised, model_kwargs=kwargs)
         model_fn = self._model_fn(model)
@@ -213,19 +217,6 @@ class VideoSampler:
                 model_fn, shape, step_noise=step_noise, encoder_reuse=self.encoder_reuse,
                 model_fn_features=self._model_fn_features(model, kwargs), **common)
 
-    def _program_window(self, replica, kwargs, shape, generator, noise, step_noise):
-        """The window through its program: the terminal noise, then per step
-        that step's noise (drawn in the eager loop's order) and one run."""
-        program = self._sampler_for(replica, kwargs)
-        draw = _full_batch_draws(shape, generator, program.device)
-        program.load(kwargs, noise if noise is not None else draw(None))
-        for i in range(program.steps):
-            step = None
-            if program.noise is not None:
-                step = step_noise[i] if step_noise is not None else draw(i)
-            program.run(i, step)
-        return program.x.clone()
-
     @torch.no_grad()
     def sample_window_attn(self, x0, frame_indices, obs_mask, latent_mask, *, generator=None,
                            noise=None, step_noise=None):
@@ -235,11 +226,18 @@ class VideoSampler:
         with ``return_attn_weights``). The exact ancestral sampler only. The
         attention weights come from the attention blocks' einsum form, so
         this path launches no attention kernel; the up path's skip
-        projections still launch theirs."""
+        projections still launch theirs. Runs through the program memoized
+        for the window's shapes under an "attn" tag (on the card a CUDA graph
+        of one step, the maps summed into its static accumulators); with
+        ``graphs=False``, the eager loop."""
         if self.use_ddim or self.use_dpm or self.encoder_reuse != 1:
             raise ValueError("sample_window_attn runs the exact ancestral sampler; it cannot "
                              "honor use_ddim, use_dpm or encoder_reuse > 1")
         kwargs, shape = self._window_args(x0, frame_indices, obs_mask, latent_mask)
+        if self.graphs:
+            program = self._sampler_for(0, kwargs, mode="attn")
+            img = _run_program(program, kwargs, shape, generator, noise, step_noise)
+            return img, program.attn_maps()
         with eval_mode(self.model):
             return self.diffusion.p_sample_loop(
                 self._model_fn_attn, shape, device=self.device, noise=noise,
@@ -305,6 +303,20 @@ class VideoSampler:
             decoded = self.codec.decode(torch.as_tensor(samples, device=self.device))
             samples = decoded.cpu().numpy()
         return samples, indices_used
+
+
+def _run_program(program: WindowProgram, kwargs, shape, generator, noise, step_noise):
+    """A window through its program: the terminal noise, then per step that
+    step's noise (drawn in the eager loop's order) and one run. Returns the
+    caller's own copy of the state."""
+    draw = _full_batch_draws(shape, generator, program.device)
+    program.load(kwargs, noise if noise is not None else draw(None))
+    for i in range(program.steps):
+        step = None
+        if program.noise is not None:
+            step = step_noise[i] if step_noise is not None else draw(i)
+        program.run(i, step)
+    return program.x.clone()
 
 
 def _full_batch_draws(shape, generator, device):

@@ -16,7 +16,11 @@ model inputs (``kwargs``: x0, frame_indices, obs_mask, latent_mask) are
 static buffers too, loaded once per window (``load``). DPM-Solver++ keeps its
 previous x0 estimate in ``x0_prev``. Under encoder reuse the program holds
 two graphs, the full call and the reuse call, and the full graph's feature
-outputs are the buffer the reuse graph reads.
+outputs are the buffer the reuse graph reads. The heatmap sampler's program
+(mode "attn", JAX's ``("attn",) + shape`` entry) sums each step's attention
+maps into static quartile accumulators (``acc``), at the quartile the step
+reads on the device from ``i``; they are made at the first step, outside
+the pool, and zeroed by each ``load``.
 
 Noise stays outside the graph: the caller draws it from its own
 ``torch.Generator`` in the eager loop's order (the terminal noise, then one
@@ -27,11 +31,12 @@ sampler's, bit for bit, with no graph-safe generator state to register.
 time a graph is needed, runs the step eagerly on the device's capture
 stream (the warm-up: the kernels build on first use, set their
 shared-memory attributes, and cuDNN picks its algorithms) and captures it
-there (``capture``). Both run with the program's device current, and the
-capture stream is one made on that device: a replica on a second card
-captures its own step, never an empty graph on another card's stream. A
-capture that fails raises: nothing falls back to the eager loop on the
-card. On the CPU ``run`` calls the same step eagerly on the same buffers.
+there (``capture``, through ``ops/_common.py`` ``capture_graph``). Both
+run with the program's device current, and the capture stream is one made
+on that device: a replica on a second card captures its own step, never an
+empty graph on another card's stream. A capture that fails raises: nothing
+falls back to the eager loop on the card. On the CPU ``run`` calls the same
+step eagerly on the same buffers.
 Every ``run`` adds one model call (or reuse call) to its owner's counters,
 and a replay adds the launch counts its graph's capture recorded to the
 kernels' counters (``ops/_common.py`` ``add_launches``), so those go on
@@ -56,11 +61,11 @@ import weakref
 import torch
 
 from ..diffusion.dpm_solver import dpm_solver_pp_rows, dpm_solver_pp_step
-from ..diffusion.gaussian import step_timestep
-from ..ops._common import add_launches, launch_delta, launch_snapshot
-from ..utils.device import capture_stream, current
+from ..diffusion.gaussian import _combined_spatial, _quartile_accumulators, step_timestep
+from ..ops._common import add_launches, capture_graph
+from ..utils.device import current
 
-MODES = ("ancestral", "ddim", "dpm", "reuse")
+MODES = ("ancestral", "ddim", "dpm", "reuse", "attn")
 
 
 @contextlib.contextmanager
@@ -82,8 +87,10 @@ class WindowProgram:
 
     ``window``: the model inputs of a window (x0, frame_indices, obs_mask,
     latent_mask), on the model's device; the static buffers take their
-    shapes and dtypes. ``mode``: "ancestral", "ddim" (with ``eta``), "dpm"
-    or "reuse" (ancestral with ``encoder_reuse`` = k > 1). ``owner``: the
+    shapes and dtypes. ``mode``: "ancestral", "ddim" (with ``eta``), "dpm",
+    "reuse" (ancestral with ``encoder_reuse`` = k > 1) or "attn" (ancestral,
+    with the attention heatmaps of ``p_sample_loop(return_attn_weights=True)``
+    summed per quartile of the steps into ``acc``). ``owner``: the
     object whose ``model_calls`` and ``reuse_calls`` each ``run`` counts
     (held weakly). ``pool``: the graph memory pool the captures share."""
 
@@ -99,12 +106,17 @@ class WindowProgram:
         self.kwargs = {k: torch.empty_like(v) for k, v in window.items()}
         self.x = torch.zeros(self.shape, dtype=torch.float32, device=self.device)
         self.i = torch.zeros((), dtype=torch.int64, device=self.device)
-        takes_noise = mode in ("ancestral", "reuse") or (mode == "ddim" and eta != 0.0)
+        takes_noise = mode in ("ancestral", "reuse", "attn") or (mode == "ddim" and eta != 0.0)
         self.noise = torch.zeros_like(self.x) if takes_noise else None
         self.ts = diffusion.step_timesteps(self.device)
         if mode == "dpm":
             self.rows = dpm_solver_pp_rows(diffusion, self.device)
             self.x0_prev = torch.zeros_like(self.x)
+        if mode == "attn":
+            # Step i's quartile, q = (4 t) // N at its timestep t, read on
+            # the device from i as the timestep is.
+            self.quartiles = (4 * self.ts) // diffusion.num_timesteps
+        self.acc = None  # the (4, B, T, T) and (4, B, S, S) f32 heatmap sums
         self.features = None
         self.pool = pool
         self._owner = weakref.ref(owner) if owner is not None else None
@@ -130,6 +142,16 @@ class WindowProgram:
         self.x.copy_(noise)
         if self.mode == "dpm":
             self.x0_prev.zero_()
+        if self.acc is not None:
+            for acc in self.acc:
+                acc.zero_()
+
+    def attn_maps(self):
+        """The window's heatmaps as ``p_sample_loop(return_attn_weights=True)``
+        returns them ({"attn/q{q}-temporal": (B, T, T), "attn/q{q}-spatial":
+        (B, S, S)}), the caller's own tensors."""
+        return {f"attn/q{q}-{kind}": acc[q].clone() for q in range(4)
+                for kind, acc in zip(("temporal", "spatial"), self.acc)}
 
     def run(self, i: int, noise=None):
         """Step ``i`` of the window (0 is the noisiest), with that step's
@@ -157,43 +179,47 @@ class WindowProgram:
             owner.reuse_calls += kind == "reuse"
 
     def capture(self, kind: str):
-        """Run this step (already in the buffers) eagerly on the device's
-        capture stream, the warm-up, then capture it there into the graph of
-        ``kind``, with the program's device current. The warm-up
-        is the step's real execution; the capture executes nothing, so the
-        launch counts it adds are taken back and kept as the graph's
-        ``deltas``, which every replay adds. Raises if the capture fails."""
-        if self.device.type != "cuda":
-            raise RuntimeError(f"CUDA graphs capture on a CUDA device, not {self.device}")
+        """Run this step (already in the buffers) and capture it into the
+        graph of ``kind`` (``ops/_common.py`` ``capture_graph``: the
+        warm-up on the device's capture stream is the step's real
+        execution; a replay adds the launch counts the capture took back).
+        Raises if the capture fails or the device is no CUDA device."""
         t0 = time.perf_counter()
-        stream = capture_stream(self.device)
-        if stream.device != self.device:
-            raise RuntimeError(f"capture stream on {stream.device}, program on {self.device}")
-        with current(self.device), torch.no_grad(), eval_mode(self.model):
+        with current(self.device):
             self.diffusion.tables_on(self.device)
-            main = torch.cuda.current_stream(self.device)
-            stream.wait_stream(main)
-            with torch.cuda.stream(stream):
-                warm = self._step(kind)
-            main.wait_stream(stream)
-            graph = torch.cuda.CUDAGraph()
-            before = launch_snapshot()
-            with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-                captured = self._step(kind)
-            delta = launch_delta(launch_snapshot(), before)
-            add_launches(delta, -1)
-            if kind == "full" and self.mode == "reuse":
-                # The graph's feature outputs are the reuse graph's input;
-                # they take the warm-up's values, as if the graph had run.
+        with torch.no_grad(), eval_mode(self.model):
+            graph, warm, captured, delta = capture_graph(
+                lambda: self._step(kind), self.device, pool=self.pool)
+        if kind == "full" and self.mode == "reuse":
+            # The graph's feature outputs are the reuse graph's input; they
+            # take the warm-up's values, as if the graph had run.
+            with current(self.device):
                 for dst, src in zip(_tensors(captured), _tensors(warm)):
                     dst.copy_(src)
-                self.features = captured
-        torch.cuda.synchronize(self.device)
+            self.features = captured
         self.graphs[kind], self.deltas[kind] = graph, delta
         self.capture_s[kind] = time.perf_counter() - t0
 
     def _call(self, x, ts, **kwargs):
         return self.model(x, ts, **kwargs)[0]
+
+    def _call_attn(self, x, ts, **kwargs):
+        return self.model(x, ts, return_attn_weights=True, **kwargs)
+
+    def _accumulate(self, attns):
+        """Add this step's maps, over the quarter of the steps, into the
+        accumulators' row of its quartile: the eager loop's ``acc[q] +=
+        maps / quarter`` (``p_sample_loop``), with q read on the device, as
+        one ``index_add_`` of one row (one rounding per element, as ``+=``).
+        The accumulators are made at the first step, outside any graph."""
+        if self.acc is None:
+            self.acc = _quartile_accumulators(attns, self.shape[0], self.device)
+        quarter = self.diffusion.num_timesteps / 4.0
+        q = self.quartiles.index_select(0, self.i.reshape(1))
+        temporal = sum(a.float() for a in attns["temporal"]) / quarter
+        spatial = _combined_spatial(attns["spatial"], self.acc[1].shape[-1]) / quarter
+        self.acc[0].index_add_(0, q, temporal.unsqueeze(0))
+        self.acc[1].index_add_(0, q, spatial.unsqueeze(0))
 
     def _call_features(self, x, ts, features):
         out, _, features = self.model(x, ts, features=features, return_features=True,
@@ -219,6 +245,11 @@ class WindowProgram:
         elif self.mode == "ancestral":
             new = d.p_sample(self._call, x, t, noise=self.noise, model_kwargs=self.kwargs,
                              **common)["sample"]
+        elif self.mode == "attn":
+            out, attns = d.call_model(self._call_attn, x, t, self.kwargs)
+            self._accumulate(attns)
+            pmv = d.p_mean_variance_from_output(out, x, t, **common)
+            new = d._ancestral_update(pmv, x, t, self.noise, None)
         else:
             new, features = d.p_sample_features(
                 self._call_features, x, t, None if kind == "full" else self.features,

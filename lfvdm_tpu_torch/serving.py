@@ -13,13 +13,16 @@ one copy of the U-Net per step, so the timestep is a tensor input and one
 graph serves every step. The kernels appear in the graph as the operators
 ``torch.ops.lfvdm.*``, which importing this module registers.
 
-A serving process needs only torch, this module and the package's ``ops``
-(the kernels): ``load_window_sampler`` deserialises the artifact and loops
-the step from ``num_timesteps - 1`` down to 0, drawing the initial and each
-step's noise from a ``torch.Generator`` seeded by the call's seed, in step
-order, on the artifact's device. No model, config, diffusion or sampling
-code is imported, at load time or at call time. Weights ship separately
-(``save_params_npz`` / ``load_params_npz``), so EMA rates can be swapped.
+A serving process needs only torch, this module, the package's ``ops``
+(the kernels) and ``utils/device.py``: ``load_window_sampler`` deserialises
+the artifact and runs the step from ``num_timesteps - 1`` down to 0,
+drawing the initial and each step's noise from a ``torch.Generator`` seeded
+by the call's seed, in step order, on the artifact's device. On the card
+the step is captured once as a CUDA graph and replayed at every step
+(``ServedWindow``), where JAX calls ``jax.jit(exported.call)``. No model,
+config, diffusion or sampling code is imported, at load time or at call
+time. Weights ship separately (``save_params_npz`` / ``load_params_npz``)
+and stay an argument of every call, so EMA rates can be swapped.
 
 Like the JAX module, this covers the ancestral and DDIM samplers.
 """
@@ -29,6 +32,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import threading
+import time
 import zipfile
 from typing import Mapping
 
@@ -36,6 +41,8 @@ import numpy as np
 import torch
 
 from . import ops  # noqa: F401  (registers torch.ops.lfvdm.*, which the artifact calls)
+from .ops._common import add_launches, capture_graph
+from .utils.device import current as _current
 
 META = "lfvdm_window_sampler.json"  # the artifact's extra file
 BF16_KEYS = "__bfloat16__"  # params.npz: the leaves stored as bf16 bits (uint16)
@@ -170,61 +177,173 @@ def artifact_meta(blob: bytes) -> dict:
 def load_window_sampler(blob: bytes):
     """Deserialise an exported sampler; returns the callable
     ``(params, x0, frame_indices, obs_mask, latent_mask, seed, *, noise=None,
-    step_noise=None) -> window``, with the artifact's metadata (``.meta``)
-    and its ``torch.export`` program (``.program``). A call with another
-    window shape, or on another device than the one exported for, raises;
-    so does loading a card's artifact where there is no card."""
+    step_noise=None) -> window`` (a ``ServedWindow``), with the artifact's
+    metadata (``.meta``) and its ``torch.export`` program (``.program``). A
+    call with another window shape, or on another device than the one
+    exported for, raises; so does loading a card's artifact where there is
+    no card. On the card the step is captured as a CUDA graph at the first
+    call and replayed at every step after."""
     meta = artifact_meta(blob)
     device = torch.device(meta["device"])
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"the artifact was exported for {device}, and no CUDA device "
                            "is available")
-    program = torch.export.load(io.BytesIO(blob))
-    step = program.module()
-    shape = tuple(meta["shape"])
-    B, K = shape[:2]
-    specs = _window_specs(B, K, shape[2], shape[3])
-    dtypes = {k: getattr(torch, dt) for k, _, dt in meta["params"]}
-    shapes = {k: tuple(s) for k, s, _ in meta["params"]}
-    what = f"the artifact was exported for the {meta['sampler']} sampler at {shape} on {device}"
+    return ServedWindow(torch.export.load(io.BytesIO(blob)), meta)
 
-    def run(params, x0, frame_indices, obs_mask, latent_mask, seed, *, noise=None,
-            step_noise=None):
+
+class ServedWindow:
+    """A loaded artifact's window sampler (the counterpart of the JAX
+    module's ``jax.jit(exported.call)``: one compiled program per artifact).
+
+    With ``graphs`` (the default) the loaded step runs on static buffers the
+    sampler owns: the state ``x``, the timestep ``t``, the step's noise, the
+    window's four inputs and one copy of the parameters. Each call checks
+    the caller's ``params`` against the artifact and copies them into that
+    copy (``load_params``), so a call with other tensors, or with the same
+    tensors changed in place, samples with *those* values; the noise is
+    drawn from the call's seed outside the step, in the eager loop's order,
+    and copied in. On the card the first step is captured as one
+    ``torch.cuda.CUDAGraph`` in a memory pool of its own
+    (``ops/_common.py`` ``capture_graph``) and every later step, of this
+    window and the next, replays it; ``t`` and the noise are written before
+    each replay, and the replay adds the kernels' launch counts its capture
+    recorded. A capture that fails raises. On the CPU the same step runs
+    eagerly on the same buffers. ``ServedWindow(program, meta,
+    graphs=False)`` loops the step eagerly on the caller's tensors: the
+    reference the captured window is held to, bitwise. A call returns the
+    caller's own tensor, never a buffer.
+
+    The buffers and the parameter copy are shared by every call, so calls
+    from several threads take turns: a lock is held from the params' copy
+    to the returned clone. A server that wants windows to overlap loads
+    one sampler per thread."""
+
+    def __init__(self, program, meta: dict, *, graphs: bool = True):
+        self.program, self.meta, self.graphs = program, meta, graphs
+        self.step = program.module()
+        self.device = torch.device(meta["device"])
+        self.shape = tuple(meta["shape"])
+        B, K, C, H = self.shape[:4]
+        self.specs = _window_specs(B, K, C, H)
+        self.param_specs = {k: (tuple(s), getattr(torch, dt)) for k, s, dt in meta["params"]}
+        self.what = (f"the artifact was exported for the {meta['sampler']} sampler at "
+                     f"{self.shape} on {self.device}")
+        self.params = None  # name -> the owned copy, in the artifact's order
+        self.buffers = None  # x, t, noise and the window inputs
+        self.graph = None
+        self.delta = {}  # launch counts one replay adds (ops launch_snapshot keys)
+        self.capture_s = None  # seconds of the warm-up and capture
+        self.lock = threading.Lock()  # one call at a time on the buffers
+
+    def _checked_params(self, params):
+        """The caller's params in the artifact's order, each checked against
+        the artifact's name, shape and device."""
+        if set(params) != set(self.param_specs):
+            names = set(self.param_specs)
+            raise KeyError(f"params differ from the exported ones: missing "
+                           f"{sorted(names - set(params))[:5]}, unexpected "
+                           f"{sorted(set(params) - names)[:5]}")
+        ordered = {}
+        for k, (shape, _) in self.param_specs.items():
+            p = params[k]
+            if tuple(p.shape) != shape or p.device != self.device:
+                raise ValueError(f"param {k} is {tuple(p.shape)} on {p.device}, exported as "
+                                 f"{shape} on {self.device}")
+            ordered[k] = p
+        return ordered
+
+    def load_params(self, params):
+        """Check ``params`` against the artifact and copy them into the
+        sampler's own parameter buffers (made at the first call)."""
+        ordered = self._checked_params(params)
+        with torch.no_grad(), _current(self.device):
+            if self.params is None:
+                self.params = {k: torch.empty(shape, dtype=dt, device=self.device)
+                               for k, (shape, dt) in self.param_specs.items()}
+            torch._foreach_copy_(list(self.params.values()), list(ordered.values()))
+
+    def __call__(self, params, x0, frame_indices, obs_mask, latent_mask, seed, *, noise=None,
+                 step_noise=None):
         window = dict(x0=x0, frame_indices=frame_indices, obs_mask=obs_mask,
                       latent_mask=latent_mask)
-        for name, (want, dt) in specs.items():
+        for name, (want, dt) in self.specs.items():
             got = window[name]
-            if tuple(got.shape) != want or got.device != device:
-                raise ValueError(f"{name} is {tuple(got.shape)} on {got.device}: {what}")
+            if tuple(got.shape) != want or got.device != self.device:
+                raise ValueError(f"{name} is {tuple(got.shape)} on {got.device}: {self.what}")
             window[name] = got.to(dt)
-        if set(params) != set(shapes):
-            raise KeyError(f"params differ from the exported ones: missing "
-                           f"{sorted(set(shapes) - set(params))[:5]}, unexpected "
-                           f"{sorted(set(params) - set(shapes))[:5]}")
-        ordered = {}
-        for k in shapes:
-            p = params[k]
-            if tuple(p.shape) != shapes[k] or p.device != device:
-                raise ValueError(f"param {k} is {tuple(p.shape)} on {p.device}, exported as "
-                                 f"{shapes[k]} on {device}")
-            ordered[k] = p.to(dtypes[k])
+        if not self.graphs:
+            ordered = {k: p.to(self.param_specs[k][1])
+                       for k, p in self._checked_params(params).items()}
+            return self._eager(ordered, window, seed, noise, step_noise)
+        with self.lock:
+            self.load_params(params)
+            return self._run(window, seed, noise, step_noise)
+
+    def _draws(self, seed, noise, step_noise):
+        """The initial noise, then ``step(i)``: step i's noise, or None where
+        the sampler takes none; drawn from a generator seeded by ``seed`` in
+        step order unless given."""
+        device, shape = self.device, self.shape
         gen = torch.Generator(device=device).manual_seed(int(seed))
         x = noise if noise is not None else torch.randn(shape, generator=gen, device=device)
-        no_noise = torch.zeros(shape, device=device)
+
+        def step(i):
+            if step_noise is not None:
+                return step_noise[i]
+            if self.meta["draws_step_noise"]:
+                return torch.randn(shape, generator=gen, device=device)
+            return None
+
+        return x, step
+
+    def _eager(self, params, window, seed, noise, step_noise):
+        x, draw = self._draws(seed, noise, step_noise)
+        no_noise = torch.zeros(self.shape, device=self.device)
+        B = self.shape[0]
         with torch.no_grad():
-            for i, s in enumerate(range(meta["num_timesteps"] - 1, -1, -1)):
-                if step_noise is not None:
-                    z = step_noise[i]
-                elif meta["draws_step_noise"]:
-                    z = torch.randn(shape, generator=gen, device=device)
-                else:
-                    z = no_noise
-                t = torch.full((B,), s, dtype=torch.int64, device=device)
-                x = step(ordered, x, t, z, *window.values())
+            for i, s in enumerate(range(self.meta["num_timesteps"] - 1, -1, -1)):
+                z = draw(i)
+                t = torch.full((B,), s, dtype=torch.int64, device=self.device)
+                x = self.step(params, x, t, no_noise if z is None else z, *window.values())
         return x
 
-    run.meta, run.program = meta, program
-    return run
+    def _run(self, window, seed, noise, step_noise):
+        with torch.no_grad(), _current(self.device):
+            if self.buffers is None:
+                self.buffers = dict(
+                    x=torch.zeros(self.shape, device=self.device),
+                    t=torch.zeros((self.shape[0],), dtype=torch.int64, device=self.device),
+                    noise=torch.zeros(self.shape, device=self.device),
+                    **{k: torch.empty(shape, dtype=dt, device=self.device)
+                       for k, (shape, dt) in self.specs.items()})
+            buf = self.buffers
+            for name in self.specs:
+                buf[name].copy_(window[name])
+            x, draw = self._draws(seed, noise, step_noise)
+            buf["x"].copy_(x)
+            buf["noise"].zero_()
+            for i, s in enumerate(range(self.meta["num_timesteps"] - 1, -1, -1)):
+                buf["t"].fill_(s)
+                z = draw(i)
+                if z is not None:
+                    buf["noise"].copy_(z)
+                if self.graph is not None:
+                    self.graph.replay()
+                    add_launches(self.delta)
+                elif self.device.type == "cuda":
+                    t0 = time.perf_counter()
+                    self.graph, _, _, self.delta = capture_graph(self._step, self.device)
+                    self.capture_s = time.perf_counter() - t0
+                else:
+                    self._step()
+            return buf["x"].clone()
+
+    def _step(self):
+        """One reverse step on the buffers: reads them, writes ``x``."""
+        buf = self.buffers
+        out = self.step(self.params, buf["x"], buf["t"], buf["noise"],
+                        *(buf[name] for name in self.specs))
+        buf["x"].copy_(out)
 
 
 def _flatten(tree, prefix=()):

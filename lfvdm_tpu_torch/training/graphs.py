@@ -52,9 +52,9 @@ from typing import Dict, List
 import torch
 
 from ..models.unet import Dropout
-from ..ops._common import add_launches, launch_delta, launch_snapshot
+from ..ops._common import add_launches, capture_graph
 from ..parallel import sharding
-from ..utils.device import capture_stream, current
+from ..utils.device import current
 from .train_loop import TrainState, step_body
 
 
@@ -127,29 +127,12 @@ class TrainProgram:
         launch counts it adds are taken back and kept as ``delta``, which
         every replay adds. Raises if the model cannot be captured or the
         capture fails."""
-        if self.device.type != "cuda":
-            raise RuntimeError(f"CUDA graphs capture on a CUDA device, not {self.device}")
-        generators = _dropout_generators(self.state.model)
         t0 = time.perf_counter()
-        stream = capture_stream(self.device)
-        if stream.device != self.device:
-            raise RuntimeError(f"capture stream on {stream.device}, program on {self.device}")
         with current(self.device):
             self.diffusion.tables_on(self.device)
-            main = torch.cuda.current_stream(self.device)
-            stream.wait_stream(main)
-            with torch.cuda.stream(stream):
-                warm = self._step()
-            main.wait_stream(stream)
-            graph = torch.cuda.CUDAGraph()
-            for generator in generators:
-                graph.register_generator_state(generator)
-            before = launch_snapshot()
-            with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-                outputs = self._step()
-            delta = launch_delta(launch_snapshot(), before)
-            add_launches(delta, -1)
-        torch.cuda.synchronize(self.device)
+        graph, warm, outputs, delta = capture_graph(
+            self._step, self.device, pool=self.pool,
+            generators=_dropout_generators(self.state.model))
         self.graph, self.delta, self.outputs = graph, delta, outputs
         self.params = [p for _, p in self.state.named_params()]
         self.grads = [p.grad for p in self.params]

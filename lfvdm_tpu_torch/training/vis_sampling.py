@@ -12,6 +12,13 @@ In a ``torch.distributed`` group every rank takes part in the gather of the
 EMA weights (a collective under FSDP2); rank 0 alone samples, on a plain
 replica of the model, and writes; every rank then waits at a barrier (the
 reference's ``dist.barrier()`` after ``log_samples``).
+
+As the JAX function keeps one sampler per EMA rate, a sample function keeps
+one replica and one ``VideoSampler`` per rate across its calls, and loads
+each call's EMA weights into that replica in place (``load_state_dict``
+copies into the existing parameters): the captured window programs of the
+first call read the same tensors, so later calls replay them rather than
+capture again. The memo lives as long as the sample function.
 """
 
 from __future__ import annotations
@@ -48,26 +55,38 @@ def make_sample_fn(vis_batch: np.ndarray, *, ema_rate: str = None, out_dir: str 
     weights (``ema_rate``, default the largest saved) and, with ``out_dir``,
     writes ``step<step>_video<i>.gif`` there and logs each path. The window
     runs on ``loop.sampling_model``, a plain replica holding the EMA
-    weights. With ``log_attn`` the per-quartile attention
+    weights, made at the rate's first call and kept (``.samplers``: rate ->
+    its ``VideoSampler``). With ``log_attn`` the per-quartile attention
     heatmaps (reference gaussian_diffusion.py:448-469) are saved too, as
     ``step<step>_attn_q<q>-{temporal,spatial}.npy``. Returns the marked uint8
     videos (B, K, C, H, W) on rank 0, None on the others.
     """
 
+    samplers = {}  # rate -> the VideoSampler over that rate's replica
+
     def sample_fn(loop):
         rank, count = process_index_and_count()
         rate = ema_rate or sorted(loop.state.ema.keys())[-1]
         ema = loop.ema_params[rate]  # every rank: under FSDP2 this gathers
-        vids = _sample(loop, loop.sampling_model(ema)) if rank == 0 else None
+        vids = _sample(loop, _sampler(loop, rate, ema)) if rank == 0 else None
         if count > 1:
             import torch.distributed as dist
 
             dist.barrier()
         return vids
 
-    def _sample(loop, model):
+    def _sampler(loop, rate, ema):
+        """The rate's sampler, its replica holding ``ema``."""
         from ..sampling.driver import VideoSampler
 
+        sampler = samplers.get(rate)
+        if sampler is None:
+            sampler = samplers[rate] = VideoSampler(loop.sampling_model(ema), loop.diffusion)
+        else:
+            sampler.model.load_state_dict(ema)
+        return sampler
+
+    def _sample(loop, sampler):
         B, T = vis_batch.shape[:2]
         with RNG(seed):
             rng = np.random.default_rng(seed)
@@ -83,7 +102,6 @@ def make_sample_fn(vis_batch: np.ndarray, *, ema_rate: str = None, out_dir: str 
         obs_t = torch.as_tensor(obs_m, device=dev)
         lat_t = torch.as_tensor(lat_m, device=dev)
 
-        sampler = VideoSampler(model, loop.diffusion)
         generator = torch.Generator(device=dev).manual_seed(seed)
         if log_attn:
             local, attns = sampler.sample_window_attn(batch, fi, obs_m, lat_m,
@@ -109,4 +127,5 @@ def make_sample_fn(vis_batch: np.ndarray, *, ema_rate: str = None, out_dir: str 
                         arr.cpu().numpy())
         return vids
 
+    sample_fn.samplers = samplers
     return sample_fn

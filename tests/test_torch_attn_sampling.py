@@ -6,7 +6,9 @@ heatmaps (``p_sample_loop(return_attn_weights=True)``,
 The accumulator is held to JAX's exactly on a fixed model whose layer maps
 have different sizes (so the spatial repeat-upsampling runs), for a schedule
 whose step count 4 divides and one it does not; the tiny U-Net's whole window
-matches JAX's when each step gets the JAX step's own noise.
+(through the program memoized per ("attn", shapes)) matches JAX's when each
+step gets the JAX step's own noise, and that program's window and maps equal
+the eager loop's (``graphs=False``) bitwise.
 """
 
 import jax
@@ -111,6 +113,71 @@ def test_sample_window_attn_matches_jax_with_injected_noise(models):  # noqa: F8
     torch.testing.assert_close(a[0], b[0], atol=0, rtol=0)
     for tag in a[1]:
         torch.testing.assert_close(a[1][tag], b[1][tag], atol=0, rtol=0)
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread while the test runs (the tier-1 command runs six
+    test files at once on the host's cores); restored after."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("injected", [False, True])
+def test_heatmap_program_is_the_eager_loop_bitwise(models, injected):  # noqa: F811
+    """The program memoized under ("attn", shapes) (on the CPU its step runs
+    eagerly on its buffers and accumulators) against the eager
+    ``p_sample_loop(return_attn_weights=True)`` (``graphs=False``): the
+    window and all eight maps bitwise, with the generator left where the
+    eager loop leaves it, or with injected noise; a second call, whose
+    ``load`` zeroes the accumulators, repeats the first bitwise."""
+    noise, kw = window(14)
+    td = diffusions("5")[1]  # 5 steps: quartiles of 2, 1, 1 and 1 steps
+    if injected:
+        rng = np.random.default_rng(15)
+        opts = dict(noise=torch.from_numpy(noise), step_noise=[
+            torch.from_numpy(rng.standard_normal(noise.shape).astype(np.float32))
+            for _ in range(td.num_timesteps)])
+        gens = [None, None]
+    else:
+        gens = [torch.Generator().manual_seed(16) for _ in range(2)]
+        opts = {}
+    eager, program = VideoSampler(models[0], td, graphs=False), VideoSampler(models[0], td)
+    want = eager.sample_window_attn(**kw, generator=gens[0], **opts)
+    got = program.sample_window_attn(**kw, generator=gens[1], **opts)
+    if not injected:
+        assert torch.equal(gens[0].get_state(), gens[1].get_state())
+    again = program.sample_window_attn(
+        **kw, generator=None if injected else torch.Generator().manual_seed(16), **opts)
+    for out in (got, again):
+        assert torch.equal(out[0], want[0])
+        assert list(out[1]) == list(want[1]) and len(want[1]) == 8
+        for tag, ref in want[1].items():
+            assert torch.equal(out[1][tag], ref), tag
+    (prog,) = program._programs.values()
+    assert got[1]["attn/q0-temporal"] is not prog.acc[0][0]  # the caller's own
+    assert eager.model_calls * 2 == program.model_calls == 2 * td.num_timesteps
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_heatmap_program_is_memoized_apart_from_the_window_program(models):  # noqa: F811
+    """One program per ("attn", shapes), made at its first call and kept,
+    beside (not shared with) the plain window's program of the same shape."""
+    _, kw = window(17)
+    s = VideoSampler(models[0], diffusions("4")[1])
+    s.sample_window(**kw, generator=torch.Generator().manual_seed(1))
+    s.sample_window_attn(**kw, generator=torch.Generator().manual_seed(1))
+    s.sample_window_attn(**kw, generator=torch.Generator().manual_seed(2))
+    keys = list(s._programs)
+    assert len(keys) == 2 and keys[1] == ("attn",) + keys[0]
+    plain, attn = (s._programs[k] for k in keys)
+    assert (plain.mode, attn.mode) == ("ancestral", "attn") and plain.acc is None
+    tail = {k: v[:, :3] for k, v in kw.items()}  # another K: a program of its own
+    _, maps = s.sample_window_attn(**tail, generator=torch.Generator().manual_seed(3))
+    assert len(s._programs) == 3 and maps["attn/q0-temporal"].shape == (1, 3, 3)
 
 
 @pytest.mark.parametrize("kwargs", [dict(use_ddim=True), dict(use_dpm=True)])

@@ -356,6 +356,47 @@ def test_sample_fn_samples_with_the_ema_and_restores_the_weights(tmp_path, monke
     np.testing.assert_array_equal(again, vids)  # seeded: the same window
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread while the test runs (the tier-1 command runs six
+    test files at once on the host's cores); restored after."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+def test_sample_fn_keeps_one_sampler_per_rate(tmp_path, monkeypatch, quiet_loggers, one_thread):
+    """As JAX's ``samplers[rate]``: a second call reuses the first call's
+    sampler, replica and window program, with the call's EMA weights loaded
+    into the replica's parameters in place; its videos equal a fresh sample
+    function's (bitwise) on the changed weights, and differ from the first.
+    Two diffusion steps keep the three windows short."""
+    from lfvdm_tpu_torch.training.vis_sampling import make_sample_fn
+
+    monkeypatch.chdir(tmp_path)
+    loop = video_train.main(TRAIN_ARGS + ["--max_steps", "1", "--save_interval", "0",
+                                          "--sample_interval", "0", "--log_interval", "0",
+                                          "--diffusion_steps", "2"])
+    vis = np.stack([get_test_dataset("synthetic", T=6)[i] for i in range(2)])
+    fn = make_sample_fn(vis, seed=0)
+    first = fn(loop)
+    ((rate, sampler),) = fn.samplers.items()
+    replica, (program,) = sampler.model, list(sampler._programs.values())
+    ptrs = [p.data_ptr() for p in replica.parameters()]
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # the zero-initialised head too, so the window moves
+        for p in loop.state.ema[rate].values():
+            if p.is_floating_point():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    second = fn(loop)
+    assert fn.samplers == {rate: sampler} and sampler.model is replica
+    assert list(sampler._programs.values()) == [program]
+    assert [p.data_ptr() for p in replica.parameters()] == ptrs
+    np.testing.assert_array_equal(second, make_sample_fn(vis, seed=0)(loop))
+    assert not np.array_equal(second, first)
+
+
 def test_logger_jsonl_and_mean_across_processes(tmp_path, monkeypatch):
     """One process: values as logged, to stdout and metrics.jsonl. A group of
     two (a stand-in for torch.distributed whose other rank logged loss 3

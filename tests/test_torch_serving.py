@@ -2,9 +2,13 @@
 operators, on the CPU (tiny config, f32, one torch thread).
 
 An exported artifact (one reverse step under ``torch.export``, looped by
-``load_window_sampler``) is held to the live ``make_window_sampler`` with the
-same seed (1e-6; the same code runs both ways), and its DDIM window with eta
-0 to the JAX package's ``serving.make_window_sampler`` on the same weights,
+``load_window_sampler`` on the sampler's own buffers) is held bitwise to the
+live ``make_window_sampler`` with the same seed (the same code runs both
+ways) and to the eager loop on the caller's tensors (``graphs=False``); a
+call with other params, or with its params changed in place, samples with
+those, and two threads sharing one sampler each get their own params'
+window. Its DDIM window with eta 0 is held to the JAX package's
+``serving.make_window_sampler`` on the same weights,
 started from JAX's own initial noise, at ``test_torch_sampling``'s
 tolerance. A fresh interpreter that cannot import JAX, flax, msgpack, the
 JAX package or the port's model, config, diffusion and sampling modules
@@ -16,7 +20,9 @@ import io
 import json
 import subprocess
 import sys
+import threading
 import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -90,8 +96,59 @@ def test_served_window_equals_the_live_sampler(models, artifacts, kind):
     got = run(params, *torch_window(1), 7)
     want = live(params, *torch_window(1), 7)
     assert got.shape == (B, K, CFG["in_channels"], CFG["image_size"], CFG["image_size"])
-    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    assert torch.equal(got, want)
+    # The loop on the sampler's own buffers against the eager loop on the
+    # caller's tensors, and a second call from the same seed: bitwise.
+    eager = serving.ServedWindow(run.program, run.meta, graphs=False)
+    assert torch.equal(got, eager(params, *torch_window(1), 7))
+    again = run(params, *torch_window(1), 7)
+    assert torch.equal(again, got) and again is not run.buffers["x"]
     assert not torch.equal(got, run(params, *torch_window(1), 8))  # the seed reaches the noise
+
+
+def test_a_call_samples_with_its_own_params(models, artifacts):
+    """``params`` stay an argument: a call with other tensors, and one with
+    the same tensors changed in place, each give a fresh sampler's window
+    for those values (bitwise), not the first call's."""
+    model = models[0]
+    blob, run, td = artifacts["ancestral"]
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    first = run(params, *torch_window(10), 3)
+    other = {k: v * 1.01 if v.is_floating_point() else v for k, v in params.items()}
+    got = run(other, *torch_window(10), 3)
+    fresh = serving.ServedWindow(run.program, run.meta)
+    assert torch.equal(got, fresh(other, *torch_window(10), 3))
+    assert not torch.equal(got, first)
+    for v in params.values():  # the first call's tensors, changed in place
+        if v.is_floating_point():
+            v.mul_(0.99)
+    got = run(params, *torch_window(10), 3)
+    assert torch.equal(got, serving.ServedWindow(run.program, run.meta)(
+        params, *torch_window(10), 3))
+    assert not torch.equal(got, first)
+
+
+def test_threads_sharing_a_sampler_each_get_their_params_window(models, artifacts):
+    """Two threads call one loaded sampler at once, each with its own params:
+    the calls take turns on its buffers, so each returns the eager window
+    for its own params (bitwise)."""
+    model = models[0]
+    _, run, _ = artifacts["ancestral"]
+    params = dict(model.state_dict())
+    other = {k: v * 1.02 if v.is_floating_point() else v for k, v in params.items()}
+    eager = serving.ServedWindow(run.program, run.meta, graphs=False)
+    want = [eager(p, *torch_window(11), 5) for p in (params, other)]
+    assert not torch.equal(*want)
+    start = threading.Barrier(2)
+
+    def calls(p):
+        start.wait()
+        return [run(p, *torch_window(11), 5) for _ in range(3)]
+
+    with ThreadPoolExecutor(2) as pool:
+        got = [f.result() for f in [pool.submit(calls, p) for p in (params, other)]]
+    for outs, ref in zip(got, want):
+        assert all(torch.equal(out, ref) for out in outs)
 
 
 def test_served_ddim_window_matches_jax(models, artifacts):
