@@ -84,13 +84,14 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                the same call (phase_graphs; the latent case in phase 8): on
                the flagship an ancestral (50), DDIM (ddim25, eta 0),
                DPM-Solver++ (dpm20) and encoder-reuse (k = 3, 50 steps)
-               window, on the latent config its 20-frame video with the
-               pre-encoded codec: captured vs eager bitwise (else relative L2
-               <= 5e-3), ms per model call both ways (CUDA events and wall, in
-               turns), launches per call from the replay counters (7 + 7 + 10,
-               reuse 4 + 4 + 10, latent 7 + 7 + 8), capture seconds per shape,
-               the pool's bytes and the peak; a ddim25 (flagship) and ddim10
-               (latent) window's device busy time and idle share, eager and
+               window, on the latent config its 20-frame video (25 steps)
+               with the pre-encoded codec: captured vs eager bitwise (else
+               relative L2 <= 5e-3), ms per model call both ways (CUDA events
+               and wall, in turns), launches per call from the replay
+               counters (7 + 7 + 10, reuse 4 + 4 + 10, latent 7 + 7 + 8),
+               capture seconds per shape, the pool's bytes and the peak; a
+               ddim10 window's (flagship and latent) device busy time and
+               idle share, eager and
                captured, from the profiler, which must name each kernel
                inside the replays. Phase 9's vis sampler keeps one sampler
                per EMA rate: its second call replays the first's program
@@ -134,9 +135,19 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                            launches per step with remat, 7 + 7 + 10 without;
                b. group of one — a NCCL group of one rank: TrainLoop
                            unwrapped, through DDP and through FSDP2 on a
-                           (1, 1) mesh, 2 steps each on the same batches:
-                           parameters and gradients within 5e-3 of the
-                           unwrapped loop's, ms per step; the FSDP2 run saved
+                           (1, 1) mesh, from one seed and one stream of
+                           videos: the eager steps' parameters and gradients
+                           after 3 steps within 5e-3 of the unwrapped loop's,
+                           ms per step; under DDP and FSDP2 the loop's own
+                           steps (run_step: the program's eager steps, its
+                           capture, 3 replays) against a twin loop's eager
+                           steps, bitwise after each, every replay with no
+                           host sync and 7 + 7 + 10 launches on "mma" and
+                           "bulk"; ms per step both ways in turns (CUDA
+                           events and wall); busy and idle share both ways,
+                           the port's and NCCL's kernels named in the
+                           replays; eager steps before the capture, capture
+                           seconds, pool bytes, peak; the FSDP2 run saved
                            and resumed unwrapped, bitwise;
                c. two ranks — two processes on the card in a gloo group, B=1
                            each under DDP and under FSDP2 (fsdp 2), against
@@ -1241,7 +1252,10 @@ GRAPH_CASES = {"ancestral": ("50", {}),
                "dpm": ("dpm20", dict(use_dpm=True)),
                "reuse": (REUSE_RESPACING, dict(encoder_reuse=REUSE_K))}
 GRAPH_TURNS = 2  # timed turns per side (A, B, B, A), after a warm-up call each
-GRAPH_PROFILE_RESPACING = "ddim25"  # the flagship window profiled eager and captured
+GRAPH_PROFILE_RESPACING = "ddim10"  # the flagship window profiled eager and captured
+# The latent video of the graphs phase: phase 8b's video at half its 50 steps
+# (its eager runs took 76 s of the script's time at 50).
+LATENT_GRAPHS_RESPACING = "25"
 
 
 def _mem():
@@ -1318,7 +1332,7 @@ def phase_graphs(cfg, model, card):
     both ways (CUDA events and wall, in turns), launches per call from the
     replay counters (7 + 7 + 10, a reuse call 4 + 4 + 10, on "mma"/"bulk"),
     capture seconds per shape and the pool's bytes; then the device busy
-    time and idle share of a ddim25 window eager and captured, from the
+    time and idle share of a ddim10 window eager and captured, from the
     profiler, with the port kernels it named inside the replays."""
     import torch
 
@@ -2170,13 +2184,16 @@ def _train_state(cfg):
 
 def _state_tensors(state):
     """(name, tensor) for every tensor of a train state: the parameters, the
-    Adam moments and count, the EMA copies."""
+    Adam moments and count, the EMA copies (under FSDP2 this rank's
+    shards)."""
+    from lfvdm_tpu_torch.parallel.sharding import local
+
     out = [("adam/count", state.optimizer.count)]
     for name, p in state.named_params():
         st = state.optimizer.state[p]
-        out += [(f"params/{name}", p.detach()), (f"exp_avg/{name}", st["exp_avg"]),
-                (f"exp_avg_sq/{name}", st["exp_avg_sq"])]
-        out += [(f"ema/{rate}/{name}", copy[name]) for rate, copy in state.ema.items()]
+        out += [(f"params/{name}", local(p.detach())), (f"exp_avg/{name}", local(st["exp_avg"])),
+                (f"exp_avg_sq/{name}", local(st["exp_avg_sq"]))]
+        out += [(f"ema/{rate}/{name}", local(copy[name])) for rate, copy in state.ema.items()]
     return out
 
 
@@ -2619,12 +2636,44 @@ def _remat_rows(dtype, B, paths):
     return rows
 
 
+GROUP_REPLAYS = 3  # replayed group steps held bitwise after the capture
+GROUP_VIDEO_FRAMES = 30  # frames per seeded video of the group phase's data stream
+
+
+def _seeded_videos(cfg, seed):
+    """An endless stream of seeded video batches (FLAGSHIP_B videos of
+    GROUP_VIDEO_FRAMES frames at ``cfg``'s size, two batches in turn): every
+    call with one seed gives the same stream."""
+    import itertools
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    C, S = cfg["in_channels"], cfg["image_size"]
+    return itertools.cycle([rng.uniform(-1, 1, (FLAGSHIP_B, GROUP_VIDEO_FRAMES, C, S, S))
+                            .astype(np.float32) for _ in range(2)])
+
+
+def _eager_run_step(loop):
+    """``TrainLoop.run_step``'s draws in its order, then the eager
+    ``train_step``: what the loop's step is on the CPU."""
+    from lfvdm_tpu_torch.training.train_loop import draw_noise, train_step
+
+    batch, t, w, _, _ = loop.next_step_inputs()
+    noise = draw_noise(loop.generator, batch["x0"], loop.n_microbatches)
+    return train_step(loop.state, batch, t, w, diffusion=loop.diffusion, noise=noise,
+                      n_microbatches=loop.n_microbatches,
+                      pad_with_random_frames=loop.pad_with_random_frames)
+
+
 def _parallel_group_of_one(ckpt_root, card):
     """A group of one rank on NCCL: TrainLoop unwrapped, through DDP and
     through FSDP2 on a (1, 1) mesh (its all-gathers and reduce-scatters run,
-    over one rank), the same weights and batches: parameters and Adam's
-    first moment after the steps against the unwrapped loop's, ms per step;
-    the FSDP2 run saved and resumed unwrapped, bitwise."""
+    over one rank), from one seed and one stream of videos: parameters and
+    Adam's first moment after PARALLEL_STEPS + 1 eager steps against the
+    unwrapped loop's, ms per step; under DDP and FSDP2 the captured group
+    step (``_group_graphs``); the FSDP2 run saved and resumed unwrapped,
+    bitwise. Returns the launch counts and routes of each path."""
     import torch
     import torch.distributed as dist
 
@@ -2632,7 +2681,7 @@ def _parallel_group_of_one(ckpt_root, card):
     from lfvdm_tpu_torch.ops import attention as ops
     from lfvdm_tpu_torch.parallel import mesh as mesh_lib
     from lfvdm_tpu_torch.parallel import sharding
-    from lfvdm_tpu_torch.training.train_loop import TrainLoop, train_step
+    from lfvdm_tpu_torch.training.train_loop import TrainLoop
 
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
                             world_size=1)
@@ -2643,46 +2692,49 @@ def _parallel_group_of_one(ckpt_root, card):
     try:
         mesh = mesh_lib.make_mesh(fsdp=1, device_type="cuda")
         row["mesh"] = list(mesh.shape)
-        steps = [_flagship_step_inputs(flagship_config(), FLAGSHIP_B, seed=80 + i)
-                 for i in range(1 + PARALLEL_STEPS)]
 
         def new_loop(kind, run="", resume=False):
             _, model, diffusion = _seeded_flagship()
             if kind == "fsdp":
                 model = sharding.shard_model(model, mesh)
-            return TrainLoop(model=model, diffusion=diffusion, data=iter(()),
+            return TrainLoop(model=model, diffusion=diffusion,
+                             data=_seeded_videos(flagship_config(), seed=80),
                              batch_size=FLAGSHIP_B, max_frames=FLAGSHIP_K, lr=PARALLEL_LR,
-                             ema_rate="0.9999", checkpoint_dir=os.path.join(tmp, run or kind),
+                             ema_rate="0.9999", log_interval=1000, save_interval=0,
+                             checkpoint_dir=os.path.join(tmp, run or kind),
                              mesh=None if kind == "plain" else mesh, resume=resume)
 
         for kind in ("plain", "ddp", "fsdp"):
-            loop = new_loop(kind)
-            ms = []
-            for i, x in enumerate(steps):
+            eager = new_loop(kind)
+            captured = None if kind == "plain" else new_loop(kind)
+            ms, metrics = [], []
+            for i in range(1 + PARALLEL_STEPS):
                 if i == 1:
                     ops.reset_launch_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                m = train_step(loop.state, {k: x[k] for k in BATCH_KEYS}, x["t"], x["w"],
-                               diffusion=loop.diffusion, noise=x["noise"])
+                metrics.append(_eager_run_step(eager))
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t0) * 1e3)
-                if m["skipped_nonfinite"].item():
+                if metrics[-1]["skipped_nonfinite"].item():
                     raise RuntimeError(f"{kind}: a non-finite step")
             launches, routes = read_counts()
             _check_launches(launches, routes, PARALLEL_STEPS)
             paths[f"parallel_{kind}"] = (launches, routes)
-            state = loop.state.state_dict()
-            states[kind] = state
-            row[kind] = {"wrapper": type(loop.model).__name__, "ms_per_step": ms[1:],
-                         "first_step_ms": ms[0], "loss": m["loss"].tolist()}
+            states[kind] = _clone(eager.state.state_dict())
+            row[kind] = {"wrapper": type(eager.model).__name__, "ms_per_step": ms[1:],
+                         "first_step_ms": ms[0], "loss": metrics[-1]["loss"].tolist()}
+            if captured is not None:
+                paths[f"parallel_{kind}_replay"] = _group_graphs(kind, eager, captured, metrics,
+                                                                 card)
             if kind == "fsdp":
-                loop.save()
+                eager.save()
+                saved = eager.state.state_dict()
                 resumed = new_loop("plain", run="fsdp", resume=True)
                 row["fsdp_resumed_unwrapped_bitwise"] = _states_equal(
-                    state, resumed.state.state_dict())
-                del resumed
-            del loop
+                    saved, resumed.state.state_dict())
+                del resumed, saved
+            del eager, captured
             torch.cuda.empty_cache()
         want = states["plain"]
         for kind in ("ddp", "fsdp"):
@@ -2708,6 +2760,106 @@ def _parallel_group_of_one(ckpt_root, card):
         shutil.rmtree(tmp, ignore_errors=True)
         dist.destroy_process_group()
     return paths
+
+
+def _group_graphs(kind, eager, captured, eager_metrics, card):
+    """The captured group step under ``kind`` (DDP or FSDP2): ``captured``,
+    a twin of ``eager`` (which has taken the steps whose metrics are
+    ``eager_metrics``), steps through ``run_step`` (its program's eager
+    steps, the capture, then GROUP_REPLAYS replays) while ``eager`` goes on
+    stepping eagerly once it is caught up: bitwise after each step (metrics,
+    and from the step both have taken, parameters, moments, count, EMA),
+    every replay with no host sync and 7 + 7 + 10 launches on the bf16
+    routes. Then, on one set of inputs, ms per step of ``program.run`` and
+    of ``train_step`` in turns (CUDA events and wall), each way's device
+    busy time and idle share from the profiler, which must name
+    each port kernel inside the replays (NCCL's kernels, if any, are
+    listed), capture seconds, pool bytes, the peak. Emits a
+    ``parallel_group_graphs`` row; returns one replay's launch counts and
+    routes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.training.graphs import eager_steps_before_capture
+    from lfvdm_tpu_torch.training.train_loop import draw_noise, train_step
+
+    n_eager = eager_steps_before_capture(captured.model)
+    steps = n_eager + 1 + GROUP_REPLAYS
+    done = len(eager_metrics)
+    diffs, replay, mem = [], None, {}
+    for i in range(steps):
+        want = eager_metrics[i] if i < done else _eager_run_step(eager)
+        is_replay = bool(captured._programs) and next(
+            iter(captured._programs.values())).graph is not None
+        torch.cuda.synchronize()
+        if i == n_eager:  # the warm-up and the capture
+            torch.cuda.empty_cache()  # as each capture does, so that reserved bytes compare
+            torch.cuda.reset_peak_memory_stats()
+            mem["before_capture"] = _mem()
+        ops.reset_launch_counts()
+        with _no_host_sync() if is_replay else contextlib.nullcontext():
+            got = captured.run_step()
+        torch.cuda.synchronize()
+        if i == n_eager:
+            mem["peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.empty_cache()  # what stays reserved is the pool's and the state's
+            mem["after_capture"] = _mem()
+        if is_replay:
+            replay = read_counts()
+            _check_launches(*replay, 1)
+        diffs += [f"step {i}: {k}" for k in want if not torch.equal(got[k], want[k])]
+        if i >= done - 1:
+            diffs += [f"step {i}: {n}" for n in _bitwise_diffs(_state_tensors(captured.state),
+                                                              _state_tensors(eager.state))]
+    program = next(iter(captured._programs.values()))
+
+    # Timed on one set of inputs, as phase 6b times the unwrapped step: the
+    # loop's host draws and uploads stay out of both sides.
+    batch, t, w, _, _ = eager.next_step_inputs()
+    noise = draw_noise(eager.generator, batch["x0"])
+    sides = {"eager": lambda: train_step(eager.state, batch, t, w, diffusion=eager.diffusion,
+                                         noise=noise),
+             "captured": lambda: program.run(batch, t, w, noise)}
+    times = _event_and_wall_ms_in_turns(sides, TRAIN_GRAPH_TURNS)
+    profiles = {}
+    for side, fn in sides.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRAIN_GRAPH_PROFILED):
+                fn()
+            torch.cuda.synchronize()
+        per_kernel = device_kernels_ms(prof, TRAIN_GRAPH_PROFILED)
+        busy = sum(per_kernel.values())
+        wall = sum(times[side]["wall_ms"]) / len(times[side]["wall_ms"])
+        profiles[side] = {
+            "device_busy_ms_per_step": busy, "idle_share": 1 - busy / wall if busy else None,
+            "host_syncs_per_step": _host_syncs(prof, TRAIN_GRAPH_PROFILED),
+            "kernels_seen_ms_per_step": {name: sum(ms for k, ms in per_kernel.items()
+                                                   if f"{name}_" in k) for name in KERNEL_NAMES},
+            "nccl_kernels_ms_per_step": {k: ms for k, ms in per_kernel.items()
+                                         if "nccl" in k.lower()},
+            "groups_ms_per_step": group_ms(per_kernel)}
+    row = {"phase": "parallel_group_graphs", "kind": kind, "wrapper": type(captured.model).__name__,
+           "B": FLAGSHIP_B, "K": FLAGSHIP_K, "step_kind": captured.step_kind,
+           "eager_steps_before_capture": n_eager, "steps_bitwise": steps,
+           "bitwise": not diffs, "diffs": diffs[:10], "capture_s": program.capture_s,
+           "launches_per_replay": replay[0], "routes_per_replay": replay[1],
+           "ms_per_step": times, "profile": profiles,
+           "pool_allocated_bytes": mem["after_capture"][0] - mem["before_capture"][0],
+           "pool_reserved_bytes": mem["after_capture"][1] - mem["before_capture"][1],
+           "capture_step_peak_gib": mem["peak"] / 2**30, "card": card}
+    emit(row)
+    if diffs:
+        raise RuntimeError(f"group graphs {kind}: captured and eager differ: {diffs[:10]}")
+    if captured.step_kind != "captured" or len(captured._programs) != 1:
+        raise RuntimeError(f"group graphs {kind}: the loop stepped {captured.step_kind} with "
+                           f"{len(captured._programs)} programs")
+    seen = profiles["captured"]["kernels_seen_ms_per_step"]
+    if not all(seen.values()):
+        raise RuntimeError(f"group graphs {kind}: the profiler saw no replayed launch of "
+                           f"{[name for name, ms in seen.items() if not ms]} ({seen})")
+    return replay
 
 
 def _parallel_two_ranks(ckpt_root, card):
@@ -2929,9 +3081,10 @@ def phase_latent_sample(cfg, model, diffusion, vae, card):
     return launches, routes
 
 
-def phase_graphs_latent(cfg, model, diffusion, vae, card):
+def phase_graphs_latent(cfg, model, vae, card):
     """The graphs phase on the latent config: its 20-frame video (autoreg,
-    n_obs 2, max_frames 5, ancestral, 50 steps, as phase 8b samples it) with
+    n_obs 2, max_frames 5, ancestral, as phase 8b samples it, at
+    LATENT_GRAPHS_RESPACING's 25 steps) with
     the pre-encoded codec, captured against eager (bitwise, else relative L2
     <= 5e-3 on the decoded video), ms per model call both ways (each run
     includes the one decode), 7 + 7 + 8 launches per call from the replay
@@ -2940,9 +3093,11 @@ def phase_graphs_latent(cfg, model, diffusion, vae, card):
     import numpy as np
     import torch
 
+    from lfvdm_tpu_torch.config import create_diffusion
     from lfvdm_tpu_torch.diffusion.codecs import PreEncodedLatentCodec
     from lfvdm_tpu_torch.sampling.driver import VideoSampler
 
+    diffusion = create_diffusion(dict(cfg, timestep_respacing=LATENT_GRAPHS_RESPACING))
     B, T, C, S = LATENT_B, LATENT_VIDEO_T, cfg["in_channels"], cfg["image_size"]
     video = np.random.default_rng(21).standard_normal((B, T, C, S, S)).astype(np.float32)
     codec = PreEncodedLatentCodec(*latent_stats(), vae=vae)
@@ -3338,7 +3493,7 @@ def phase_latent(ckpt_root, card):
     with torch_tf32_defaults():
         vae = SVDVae(seed=0, device="cuda")
         sample = phase_latent_sample(cfg, model, diffusion, vae, card)
-        graphs = phase_graphs_latent(cfg, model, diffusion, vae, card)
+        graphs = phase_graphs_latent(cfg, model, vae, card)
         del model
         phase_vae_cpu(vae, card)
         train, train_replay = phase_latent_train(ckpt_root, vae, card)

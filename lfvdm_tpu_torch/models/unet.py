@@ -30,11 +30,14 @@ inputs and runs its forward again in the backward pass
 (``torch.utils.checkpoint``, non-reentrant), so its kernels launch twice per
 step. The recompute draws the same dropout masks as the forward, as JAX's
 remat replays the same key (``_remat``); a block whose dropout draws
-nothing keeps no RNG state.
+nothing keeps no RNG state. Inside a captured train step the recompute
+draws from a graph-safe copy of the generator's state instead
+(``RematDropoutStreams``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Sequence, Tuple
 
@@ -83,35 +86,120 @@ def set_dropout_generator(model: nn.Module, generator) -> None:
             m.generator = generator
 
 
-def _remat(fn, draws: bool, generator, *args, **kwargs):
+def _remat(fn, draws: bool, generator, streams, *args, **kwargs):
     """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint``. Where ``fn``
     ``draws`` random numbers, its recompute draws the same ones as the
     forward did: from ``generator`` (``checkpoint`` restores the global RNGs
     itself, not an explicit generator's), which the recompute puts back
     where the forward left it, so the run's stream goes on unchanged; from
-    the global RNGs when ``generator`` is None. Where it draws none, no RNG
-    state is read or set, on the host or the device: the block's forward
-    and recompute then go into a CUDA graph as they are."""
+    the global RNGs when ``generator`` is None. Inside a capture that
+    ``streams`` (a ``RematDropoutStreams``, or None) watches, the recompute
+    draws from that forward's graph-safe copy of the generator's state
+    instead. Where ``fn`` draws none, no RNG state is read or set, on the
+    host or the device: the block's forward and recompute then go into a
+    CUDA graph as they are."""
     checkpoint = torch.utils.checkpoint.checkpoint
     if not draws:
         return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
     if generator is None:
         return checkpoint(fn, *args, use_reentrant=False, **kwargs)
-    start = generator.get_state()
+    capturing = streams is not None and torch.cuda.is_current_stream_capturing()
+    if capturing:
+        copy = streams.take(generator)
+    else:
+        if streams is not None:
+            streams.record(generator)
+        start = generator.get_state()
     ran = []
 
     def replay(*a, **kw):
         if not ran:  # the forward
             ran.append(True)
             return fn(*a, **kw)
-        resume = generator.get_state()
-        generator.set_state(start)
+        if capturing:
+            resume = generator.graphsafe_get_state()
+            generator.graphsafe_set_state(copy)
+        else:
+            resume = generator.get_state()
+            generator.set_state(start)
         try:
             return fn(*a, **kw)
         finally:
-            generator.set_state(resume)
+            (generator.graphsafe_set_state if capturing else generator.set_state)(resume)
 
-    return checkpoint(replay, *args, use_reentrant=False, **kwargs)
+    return checkpoint(replay, *args, use_reentrant=False, preserve_rng_state=not capturing,
+                      **kwargs)
+
+
+class RematDropoutStreams:
+    """The dropout masks of the rematerialised blocks of one captured step.
+
+    Eagerly, ``_remat``'s recompute sets its generator back to where the
+    block's forward began (``get_state``/``set_state``): host state, which a
+    CUDA graph does not replay. Inside a graph a draw's Philox offset is the
+    generator state's base, which each replay writes from the host
+    (``philox_offset_per_thread``, then advanced by the draws the capture
+    made), plus a constant the capture fixed. So, inside ``watch(model)``
+    (which hands this object to the model's ResBlocks):
+
+    - the eager warm-up step records, for each rematerialised forward that
+      draws, its generator, its offset from the step's start
+      (``get_offset``) and a copy of the generator's state
+      (``clone_state``), which ``copies`` hands to the graph to register;
+    - the capture's forwards take those copies in the same order, and each
+      recompute draws from its copy (``graphsafe_set_state``, then back to
+      the generator's own state), starting at the copy's offset 0;
+    - before every replay ``before_replay`` gives each copy the generator's
+      seed and its base plus the recorded offset.
+
+    So each replay's recompute draws the forward's masks, as the eager step
+    does, and the generator's own stream goes on as eagerly (the copies'
+    draws never advance it). Costs a few host calls per such block and
+    replay; nothing is read back from the card."""
+
+    def __init__(self, generators):
+        self.generators = list(generators)
+        self.calls = []  # (generator, offset of its forward from the step's start, state copy)
+        self._start = {}
+        self._taken = 0
+
+    @contextlib.contextmanager
+    def watch(self, model: nn.Module):
+        """Inside, the rematerialised ResBlocks of ``model`` record their
+        draws (an eager step) or take the recorded copies (a capture)."""
+        if not torch.cuda.is_current_stream_capturing():
+            self.calls, self._start = [], {id(g): g.get_offset() for g in self.generators}
+        self._taken = 0
+        blocks = [m for m in model.modules() if isinstance(m, ResBlock)]
+        for block in blocks:
+            block.remat_streams = self
+        try:
+            yield
+        finally:
+            for block in blocks:
+                block.remat_streams = None
+
+    def record(self, generator):
+        if id(generator) not in self._start:
+            raise ValueError("a rematerialised block draws from a generator the step does not "
+                             "register")
+        offset = generator.get_offset() - self._start[id(generator)]
+        self.calls.append((generator, offset, generator.clone_state()))
+
+    def take(self, generator):
+        if self._taken >= len(self.calls) or self.calls[self._taken][0] is not generator:
+            raise RuntimeError("the capture's rematerialised draws differ from the warm-up's")
+        self._taken += 1
+        return self.calls[self._taken - 1][2]
+
+    def copies(self) -> list:
+        """The state copies the graph must register, in call order."""
+        return [copy for _, _, copy in self.calls]
+
+    def before_replay(self):
+        for generator, offset, copy in self.calls:
+            copy.manual_seed(generator.initial_seed())
+            copy.set_offset(generator.get_offset() + offset)
 
 
 def _rematerialises(block: nn.Module) -> bool:
@@ -127,6 +215,7 @@ class ResBlock(nn.Module):
         super().__init__()
         self.use_scale_shift_norm = use_scale_shift_norm
         self.use_checkpoint = use_checkpoint
+        self.remat_streams = None  # a RematDropoutStreams while a captured step watches
         self.in_layers = nn.Sequential(
             GroupNorm32(channels), nn.SiLU(),
             Conv2d(channels, out_channels, 3, padding=1, dtype=dtype))
@@ -154,8 +243,8 @@ class ResBlock(nn.Module):
         its plain version."""
         if _rematerialises(self):
             drop = self.out_layers[2]
-            return _remat(self._forward, drop.draws, drop.generator, x, emb, in_stats, parts,
-                          impl)
+            return _remat(self._forward, drop.draws, drop.generator, self.remat_streams, x, emb,
+                          in_stats, parts, impl)
         return self._forward(x, emb, in_stats, parts, impl)
 
     def _forward(self, x, emb, in_stats, parts, impl):
@@ -216,8 +305,8 @@ class FactorizedAttentionBlock(nn.Module):
     def forward(self, x, temb, frame_indices, attn_mask, *, T: int,
                 return_attn: bool = False, impl: str = "auto"):
         if _rematerialises(self):
-            return _remat(self._forward, False, None, x, temb, frame_indices, attn_mask, T=T,
-                          return_attn=return_attn, impl=impl)
+            return _remat(self._forward, False, None, None, x, temb, frame_indices, attn_mask,
+                          T=T, return_attn=return_attn, impl=impl)
         return self._forward(x, temb, frame_indices, attn_mask, T=T, return_attn=return_attn,
                              impl=impl)
 

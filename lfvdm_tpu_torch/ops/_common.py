@@ -27,7 +27,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..utils.device import capture_stream, current
+from ..utils.device import capture_stream, current, on_capture_stream
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh: DType
 
@@ -93,10 +93,11 @@ def capture_graph(fn, device, *, pool=None, generators=()):
     are taken back and returned, for every replay to add again
     (``add_launches``). ``pool``: the graph memory pool to capture into;
     ``generators``: generators whose state the graph advances at each
-    replay (``register_generator_state``). Returns (graph,
-    the warm-up's result, the captured result, the launch counts a replay
-    adds). Raises if ``device`` is no CUDA device or the capture fails: no
-    caller falls back to eager on the card."""
+    replay (``register_generator_state``), or a function called after the
+    warm-up that returns them. Returns (graph, the warm-up's result, the
+    captured result, the launch counts a replay adds). Raises if ``device``
+    is no CUDA device or the capture fails: no caller falls back to eager
+    on the card."""
     device = torch.device(device)
     if device.type != "cuda":
         raise RuntimeError(f"CUDA graphs capture on a CUDA device, not {device}")
@@ -104,13 +105,10 @@ def capture_graph(fn, device, *, pool=None, generators=()):
     if stream.device != device:
         raise RuntimeError(f"capture stream on {stream.device}, program on {device}")
     with current(device):
-        main = torch.cuda.current_stream(device)
-        stream.wait_stream(main)
-        with torch.cuda.stream(stream):
+        with on_capture_stream(device):
             warm = fn()
-        main.wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        for generator in generators:
+        for generator in generators() if callable(generators) else generators:
             graph.register_generator_state(generator)
         before = launch_snapshot()
         with torch.cuda.graph(graph, pool=pool, stream=stream):

@@ -35,6 +35,7 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
+from ..utils.device import on_capture_stream
 from .mesh import FSDP_AXIS
 
 
@@ -108,15 +109,20 @@ def wrap_for_training(model: nn.Module, mesh, fsdp: int = 1,
     """The model as the train step runs it: unchanged without a ``mesh``
     (``TrainLoop`` builds one only in a group of more than one process, or
     takes the caller's), or already wrapped; ``DistributedDataParallel``
-    with ``fsdp == 1``; ``shard_model`` with ``fsdp > 1``."""
+    with ``fsdp == 1``; ``shard_model`` with ``fsdp > 1``. On a card DDP is
+    built on the device's capture stream, where the captured train step
+    runs its warm-up and capture (``training/graphs.py``): PyTorch's
+    condition for capturing DDP's whole backward."""
     from torch.nn.parallel import DistributedDataParallel
 
     if mesh is None or is_sharded(model) or isinstance(model, DistributedDataParallel):
         return model
     if fsdp == 1:
         device = next(model.parameters()).device
-        return DistributedDataParallel(
-            model, device_ids=[device.index] if device.type == "cuda" else None)
+        if device.type != "cuda":
+            return DistributedDataParallel(model)
+        with on_capture_stream(device):
+            return DistributedDataParallel(model, device_ids=[device.index])
     return shard_model(model, mesh, min_size)
 
 

@@ -8,11 +8,12 @@ The config comes from the flags and the dataset (T, image size, the latent
 norm stats of a pre-encoded dataset, the wavelet channels) and is embedded in
 every checkpoint, so sampling needs only the run directory. ``--init_from_pt``
 warm-starts from a reference ``.pt`` checkpoint whose config wins over the
-flags. Runs on the card unless ``--device cpu``. On one card each step
-replays one CUDA graph of the whole step, captured at the first step of its
-shape; with ``--device cpu`` or under ``torchrun`` the steps run eagerly.
-``TrainLoop.run_loop`` prints which ("train step: captured" or "train
-step: eager").
+flags. Runs on the card unless ``--device cpu``. On a card each step
+replays one CUDA graph of the whole step, captured at an early step of its
+shape (under ``torchrun`` on every rank, with DDP's or FSDP2's collectives
+inside; DDP's first 11 steps run eagerly); with ``--device cpu`` the steps
+run eagerly. ``TrainLoop.run_loop`` prints which ("train step: captured"
+or "train step: eager").
 
 On several cards, launch one process per card:
 

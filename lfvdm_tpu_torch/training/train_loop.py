@@ -14,12 +14,13 @@ it was, and the step reads nothing back to the host. The Adam count and the
 schedule's count are 0-d int64 tensors on the device, and the LR is
 computed from the latter there.
 
-On one card ``TrainLoop`` runs each step as one CUDA graph per step shape
+On a card ``TrainLoop`` runs each step as one CUDA graph per step shape
 (``training/graphs.py`` ``TrainProgram``, the counterpart of the JAX loop's
-``jax.jit(train_step, donate_argnums=(0,))``); the graph and the eager
-``train_step`` run the same ``step_body``, so a captured step is the eager
-one bit for bit. On the CPU, and in a group of more than one process or
-with a ``mesh``, the loop runs ``train_step`` eagerly.
+``jax.jit(train_step, donate_argnums=(0,))``), on one card and on every
+rank of a group, with DDP's or FSDP2's collectives inside the graph; the
+graph and the eager ``train_step`` run the same ``step_body``, so a
+captured step is the eager one bit for bit. On the CPU the loop runs
+``train_step`` eagerly.
 
 In a group of more than one process the loop wraps the model for data
 parallelism (``parallel/sharding.py``: DDP, or FSDP2 with ``fsdp`` > 1).
@@ -414,8 +415,8 @@ class TrainLoop:
     encode is the identity. ``profile_dir``: a ``torch.profiler``
     trace of steps [profile_start_step, + profile_num_steps) is written there.
 
-    ``run_step`` replays a captured step (``step_kind``) on one card and
-    steps eagerly otherwise; each returns the step's metrics as tensors on
+    ``run_step`` replays a captured step (``step_kind``) on a card and
+    steps eagerly on the CPU; each returns the step's metrics as tensors on
     the device, which are read on the host only at the log interval (and
     the loss-aware schedule sampler's losses, after every step). A step's
     inputs are placed with no host wait (``place``), so on a card
@@ -592,14 +593,9 @@ class TrainLoop:
     @property
     def step_kind(self) -> str:
         """How ``run_step`` steps: "captured" (one CUDA graph per step shape,
-        replayed once per step) on one card, with no group, no mesh and an
-        unwrapped model; "eager" (``train_step``) on the CPU and under DDP
-        or FSDP2."""
-        unwrapped = sharding.unwrap(self.model) is self.model and not sharding.is_sharded(
-            self.model)
-        captured = (self.device.type == "cuda" and self.world == 1 and self.mesh is None
-                    and unwrapped)
-        return "captured" if captured else "eager"
+        replayed once per step) on a card, with the model unwrapped, under
+        DDP or under FSDP2; "eager" (``train_step``) on the CPU."""
+        return "captured" if self.device.type == "cuda" else "eager"
 
     def _program_for(self, batch: Dict[str, torch.Tensor]):
         """The ``TrainProgram`` of this step's shape (B, K, image or latent

@@ -112,6 +112,20 @@ def capture_stream(device) -> torch.cuda.Stream:
     return stream
 
 
+@contextlib.contextmanager
+def on_capture_stream(device):
+    """Inside, the current stream is ``device``'s capture stream, which
+    first waits for the work queued on ``device``'s current stream; on exit
+    that stream waits for it. Where the warm-ups of captured programs run,
+    and where DDP is built (``parallel/sharding.py``)."""
+    main = torch.cuda.current_stream(device)
+    stream = capture_stream(device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        yield stream
+    main.wait_stream(stream)
+
+
 def current(device):
     """Make ``device`` the current CUDA device inside; nothing on the CPU."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

@@ -17,6 +17,15 @@ Two ``gloo`` processes on the CPU, launched once for every case
   per rank in two microbatches under FSDP2, each against one process's step
   on the same rows and injected noise (B=2, and B=4 in two chunks):
   parameters, Adam moments and every EMA within 1e-6 relative;
+- each case again through a ``TrainProgram`` on the wrapped model (its CPU
+  route, ``step_body`` on its buffers) for two steps, against
+  ``train_step`` on a twin loop bitwise after each; its state after the
+  first against one process's step, and, for FSDP2 over the two ranks,
+  against the JAX package's jitted step over a (1, 2) mesh of two CPU
+  devices (params placed by ``fsdp_param_sharding``, the batch by
+  ``shard_batch``, JAX's noise injected into the port) within
+  test_torch_train_graphs.py's tolerances; ``step_kind`` is "eager" on the
+  CPU and "captured" on a card, wrapped or not;
 - the loss-aware sampler: both ranks hold the weights of one process's
   ``update_with_all_losses`` on the rows in rank order;
 - the FSDP2 run saved by the two ranks resumes in one process, and one
@@ -30,17 +39,26 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
+from lfvdm_tpu.config import create_model_and_diffusion as j_create
+from lfvdm_tpu.parallel import mesh as j_mesh
+from lfvdm_tpu.parallel import sharding as j_sharding
+from lfvdm_tpu.training.train_loop import init_train_state as j_init_train_state
+from lfvdm_tpu.training.train_loop import make_optimizer as j_make_optimizer
+from lfvdm_tpu.training.train_loop import make_train_step
 from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
 from lfvdm_tpu_torch.diffusion.resample import LossSecondMomentResampler
 from lfvdm_tpu_torch.training import checkpoint as ckpt_lib
 from lfvdm_tpu_torch.training.train_loop import TrainLoop, train_step
 from lfvdm_tpu_torch.utils import device as device_lib
 from test_torch_cli import CFG64, SAMPLE_ARGS, TRAIN_ARGS, write_reference_pt
+from test_torch_train_graphs import assert_state_matches, jax_noise
+from test_torch_training import jax_params
 
 ROOT = Path(__file__).resolve().parents[1]
 CFG = flagship_config(tiny=True)
@@ -72,8 +90,16 @@ out["vis_gifs"] = len(gifs)
 
 from lfvdm_tpu_torch.config import create_model_and_diffusion
 from lfvdm_tpu_torch.diffusion.resample import LossSecondMomentResampler
+from lfvdm_tpu_torch.training.graphs import TrainProgram
 from lfvdm_tpu_torch.training.train_loop import TrainLoop, train_step
 inputs = {k: torch.from_numpy(v) for k, v in np.load(job["inputs"]).items()}
+
+def equal(a, b):
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(equal(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
 
 def new_loop(fsdp, rows, **kw):
     model, diffusion = create_model_and_diffusion(job["cfg"], device="cpu")
@@ -95,6 +121,34 @@ for case, (fsdp, size, micro) in job["cases"].items():
     if rank == 0:
         torch.save(state, os.path.join(job["out"], case + ".pt"))
     loop.save()
+    # The same case through a TrainProgram (its CPU route) and through
+    # train_step on a twin loop, two steps.
+    eager, prog = (new_loop(fsdp, range(size), microbatch=micro,
+                            checkpoint_dir=os.path.join(job["out"], case + "_program"))
+                   for _ in range(2))
+    kinds = [prog.step_kind]
+    prog.device = torch.device("cuda")  # the rule alone: the model stays on the CPU
+    kinds.append(prog.step_kind)
+    prog.device = torch.device("cpu")
+    program, bitwise = None, []
+    for s in (1, 2):
+        x = {f: inputs[f"{case}_p{s}_{f}"][rows]
+             for f in ("x0", "frame_indices", "obs_mask", "latent_mask", "t", "w", "noise")}
+        batch = {f: x[f] for f in ("x0", "frame_indices", "obs_mask", "latent_mask")}
+        if program is None:
+            program = TrainProgram(prog.state, prog.diffusion, batch,
+                                   n_microbatches=prog.n_microbatches)
+        want = train_step(eager.state, batch, x["t"], x["w"], diffusion=eager.diffusion,
+                          noise=x["noise"], n_microbatches=eager.n_microbatches)
+        got = program.run(batch, x["t"], x["w"], x["noise"])
+        a, b = prog.state.state_dict(), eager.state.state_dict()
+        bitwise.append(equal(a, b) and set(got) == set(want)
+                       and all(torch.equal(got[k], want[k]) for k in want))
+        if s == 1 and rank == 0:
+            torch.save(a, os.path.join(job["out"], f"program_{case}.pt"))
+    out.setdefault("program", {})[case] = {
+        "bitwise": bitwise, "step_kinds": kinds, "wrapper": type(prog.model).__name__,
+        "steps": [prog.state.step, eager.state.step]}
 resumed = new_loop(2, range(1), checkpoint_dir=job["one_process_run"], resume=True)
 state = resumed.state.state_dict()
 if rank == 0:
@@ -129,8 +183,14 @@ def _batch(n, seed):
             .astype(np.float32), "noise": rng.standard_normal((n, K, C, S, S)).astype(np.float32)}
 
 
+def program_key(case):
+    """The JAX key whose noise the program's first step of ``case`` takes."""
+    return jax.random.PRNGKey(30 + list(CASES).index(case))
+
+
 def _one_process_state(params, inputs, case, tmp_path, n_micro=1):
-    """One process's step on every row of ``case``'s inputs; its state dict."""
+    """One process's step on every row of ``case``'s inputs (a key of
+    ``inputs``' prefix); its loop."""
     model, diffusion = create_model_and_diffusion(CFG, device="cpu")
     model.load_state_dict(params)
     n = len(inputs[case + "_x0"])
@@ -166,6 +226,10 @@ def ranks(tmp_path_factory, one_torch_thread):
     inputs = {}
     for i, (case, (_, size, _)) in enumerate(CASES.items()):
         inputs.update({f"{case}_{k}": v for k, v in _batch(2 * size, i).items()})
+        first = _batch(2 * size, 10 + i)  # the program's steps; the first with JAX's noise
+        first["noise"] = np.array(jax_noise(program_key(case), first["x0"].shape))
+        inputs.update({f"{case}_p1_{k}": v for k, v in first.items()})
+        inputs.update({f"{case}_p2_{k}": v for k, v in _batch(2 * size, 20 + i).items()})
     np.savez(tmp / "inputs.npz", **inputs)
     (tmp / "out").mkdir()
     one = _one_process_state(params, inputs, "ddp", tmp)  # a one-process run to resume
@@ -269,6 +333,63 @@ def test_two_rank_step_matches_one_process(ranks, case, tmp_path):
     _assert_states_close(got, want.state.state_dict(), rtol=1e-6, moments_rtol=5e-6)
     moved = max((got["params"][k] - v).abs().max().item() for k, v in ranks["params"].items())
     assert moved > 1e-4  # a step of lr 1e-3 is far above the tolerance
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_two_rank_program_is_train_step_bitwise(ranks, case):
+    """The program's CPU route on the wrapped model equals ``train_step`` on
+    a twin loop, state and metrics, after each of two steps; the rule of
+    ``step_kind`` ignores the wrapper."""
+    for r in ranks["results"]:
+        got = r["program"][case]
+        assert got["bitwise"] == [True, True] and got["steps"] == [2, 2]
+        assert got["step_kinds"] == ["eager", "captured"]
+        assert got["wrapper"] == ("DistributedDataParallel" if case == "ddp" else "FSDPUNetVideoModel")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_two_rank_program_matches_one_process(ranks, case, tmp_path):
+    got = torch.load(ranks["tmp"] / "out" / f"program_{case}.pt")
+    inputs = {k.replace(f"{case}_p1_", f"{case}_"): v for k, v in ranks["inputs"].items()
+              if k.startswith(f"{case}_p1_")}
+    n_micro = 2 if CASES[case][2] > 0 else 1
+    want = _one_process_state(ranks["params"], inputs, case, tmp_path, n_micro)
+    _assert_states_close(got, want.state.state_dict(), rtol=1e-6, moments_rtol=5e-6)
+
+
+def test_two_rank_program_matches_jax_mesh_step(ranks):
+    """FSDP2 over the two ranks (fsdp 2, parameters under MIN_SIZE elements
+    replicated) against ``jax.jit(make_train_step(...))`` over a (1, 2) mesh
+    of two CPU devices: the JAX package's params placed by
+    ``fsdp_param_sharding`` with the same MIN_SIZE, its batch, t and weights
+    by ``shard_batch``, the same seeded weights and rows; the port took the
+    noise JAX draws from the step's key. Held within
+    test_torch_train_graphs.py's tolerances (1e-5, and one step where JAX's
+    gradient is flat, of which the EMA at rate 0.9 takes a tenth)."""
+    got = torch.load(ranks["tmp"] / "out" / "program_fsdp.pt")
+    x = {k[len("fsdp_p1_"):]: v for k, v in ranks["inputs"].items() if k.startswith("fsdp_p1_")}
+    rates = [float(r) for r in RATES.split(",")]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("LFVDM_PALLAS_SKIPCONV", "xla")
+        jmodel, jdiff = j_create(dict(CFG))
+        mesh = j_mesh.make_mesh(jax.devices()[:2], fsdp=2)
+        assert dict(mesh.shape) == {j_mesh.DP_AXIS: 1, j_mesh.FSDP_AXIS: 2}
+        tx = j_make_optimizer(LR, WD)
+        params = jax_params()
+        placed = jax.device_put(params, j_sharding.fsdp_param_sharding(mesh, params,
+                                                                       min_size=MIN_SIZE))
+        state = j_init_train_state(placed, tx, rates)
+        step = jax.jit(make_train_step(jmodel, jdiff, tx, rates))
+        batch = {"x0": x["x0"], "frame_indices": x["frame_indices"].astype(np.int32),
+                 "obs_mask": x["obs_mask"], "latent_mask": x["latent_mask"]}
+        new, _ = step(state, j_sharding.shard_batch(mesh, batch),
+                      j_sharding.put_batch_array(mesh, x["t"].astype(np.int32)),
+                      j_sharding.put_batch_array(mesh, x["w"]), program_key("fsdp"))
+        sharded = sum(len(leaf.sharding.device_set) == 2 and not leaf.sharding.is_fully_replicated
+                      for leaf in jax.tree.leaves(new["params"]))
+    assert sharded > 0  # some parameters lay over the fsdp axis
+    to_np = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
+    assert_state_matches(got, [to_np(state), to_np(new)], lr=LR, wd=WD, ema_flat_steps=True)
 
 
 def test_two_rank_save_resumes_in_one_process_and_back(ranks):

@@ -174,28 +174,44 @@ def assert_close(got, want, rtol=TOL, atol_rel=TOL, err=""):
                                    atol=atol_rel * scale, err_msg=f"{err}{k}")
 
 
-def assert_state_matches(got, jax_states):
+def assert_state_matches(got, jax_states, lr=LR, wd=WD, ema_flat_steps=False):
     """The port's state_dict against the last of ``jax_states`` (JAX's
-    states from the one both started from, one per update): the counts
-    exactly, moments and EMA copies within TOL, the parameters within TOL
-    plus, on each element, LR·(1 + WD·|p|) for every update whose JAX
-    gradient there was under FLAT_G (module docstring)."""
+    states from the one both started from, one per update, at learning rate
+    ``lr`` and weight decay ``wd``): the counts exactly, moments and every
+    EMA copy within TOL, the parameters within TOL plus, on each element,
+    lr·(1 + wd·|p|) for every update whose JAX gradient there was under
+    FLAT_G (module docstring). With ``ema_flat_steps`` an EMA copy at rate
+    r, which takes 1 - r of the parameters at each update, is allowed
+    (1 - r^updates) of the parameters' allowance beside TOL (a rate of 0.9
+    carries a tenth of a flat step)."""
     states = [train_state_from_jax(s, **ARCH) for s in jax_states]
     want, updates = states[-1], states[-1]["adam"]["count"]
     assert got["adam"]["count"] == updates and got["schedule_count"] == want["schedule_count"]
     for key in ("exp_avg", "exp_avg_sq"):
         assert_close(got["adam"][key], want["adam"][key], err=f"{key} ")
-    for r in RATES:
-        assert_close(got["ema"][r], want["ema"][r], err=f"ema {r} ")
     params, scale = want["params"], max(v.abs().max().item() for v in want["params"].values())
+    flat_allowance = {}
     for k in params:
         g, w = got["params"][k], params[k]
         flat_steps = sum(
             ((b["adam"]["exp_avg"][k] - 0.9 * a["adam"]["exp_avg"][k]) / 0.1).abs() < FLAT_G
             for a, b in zip(states, states[1:]))
-        tol = TOL * scale + TOL * w.abs() + flat_steps * LR * (1 + WD * w.abs())
+        flat_allowance[k] = flat_steps * lr * (1 + wd * w.abs())
+        tol = TOL * scale + TOL * w.abs() + flat_allowance[k]
         bad = (g - w).abs() > tol
         assert not bad.any(), (k, (g - w).abs().max().item())
+    assert set(got["ema"]) == set(want["ema"])
+    for r in want["ema"]:
+        if not ema_flat_steps:
+            assert_close(got["ema"][r], want["ema"][r], err=f"ema {r} ")
+            continue
+        copy = want["ema"][r]
+        ema_scale = max(v.abs().max().item() for v in copy.values())
+        share = 1 - float(r) ** updates
+        for k, w in copy.items():
+            tol = TOL * ema_scale + TOL * w.abs() + share * flat_allowance[k]
+            bad = (got["ema"][r][k] - w).abs() > tol
+            assert not bad.any(), (r, k, (got["ema"][r][k] - w).abs().max().item())
 
 
 def assert_metrics_match(got, want):
