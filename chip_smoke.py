@@ -244,7 +244,23 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                   CARLA-layout fixture with coords_*.npy siblings (3 + 1
                   videos of 8 frames at 128 px): finite losses, and the
                   checkpoints it writes load into the predictor of c.
- 11. the "kernels" summary line, then {"ok": true, "device": {...}} last.
+ 11. convert — the weight converters (lfvdm_tpu_torch/scripts/convert_*) at
+               PyTorch's TF32 defaults (their checks turn TF32 off), with
+               stand-ins for their source libraries, none of which is on the
+               card's machine (stand_in_libraries: the port's SVDVae at SVD's
+               widths as diffusers' AutoencoderKLTemporalDecoder, AlexNet-LPIPS
+               in torch modules as lpips.LPIPS, seeded): a. convert_svd_vae.main
+               and b. convert_lpips.main at their default device, so their own
+               checks run on the card; c. convert_i3d.convert on the TF-named
+               variables of a seeded Kinetics-400 I3D. For each, the loader on
+               the card (load_svd_vae, LpipsEmbedder, I3DFeatureExtractor)
+               gives every parameter bitwise the source's, and one forward
+               matches the source module's on the card (bitwise, else within
+               1e-3): a 4-frame decode of 32x32 latents to 256 px, the LPIPS
+               distance of two batches of 8 frames at 64 px, the logits of a
+               (1, 16, 224, 224, 3) clip; seconds and npz bytes per converter;
+               no port kernel launches on this path.
+ 12. the "kernels" summary line, then {"ok": true, "device": {...}} last.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when the lfvdm_tpu_torch package is not beside this script.
@@ -4212,6 +4228,251 @@ def phase_evals(ckpt_root, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the weight converters
+# ---------------------------------------------------------------------------
+
+CONVERT_SEED = 70
+CONVERT_DECODE = (4, 32)  # frames, latent pixels: a 4-frame decode to 256 px
+CONVERT_LPIPS_BATCH = 8  # 64 px frames per side of the distance
+CONVERT_CLIP = (1, 16, 224, 224, 3)
+CONVERT_BOUND = 1e-3  # the converters' own tolerance
+# torchvision AlexNet ``features``: (in, out, kernel, stride, padding) per
+# convolution; a 3x3 stride-2 max pool before the second and the third.
+ALEXNET_CONVS = ((3, 64, 11, 4, 2), (64, 192, 5, 1, 2), (192, 384, 3, 1, 1),
+                 (384, 256, 3, 1, 1), (256, 256, 3, 1, 1))
+
+
+def stand_in_libraries(seed):
+    """The converters' source libraries for a machine that has none of them,
+    at published widths with seeded weights: ``diffusers`` whose
+    ``AutoencoderKLTemporalDecoder.from_pretrained`` gives the port's
+    ``SVDVae`` at SVD's widths (it has diffusers' names and calls), and
+    ``lpips`` whose ``LPIPS`` holds AlexNet's features and the five heads as
+    torch modules (``net``, ``lins[i].model[-1]``, as the package has them)
+    and computes the LPIPS distance as the package does. Returns ({name:
+    module}, {"svd": ..., "lpips": ...}), the second filled with each model
+    as it is made."""
+    import types
+
+    import torch
+    from torch import nn
+
+    from lfvdm_tpu_torch.models.vae import SVDVae
+
+    made = {}
+
+    class AutoencoderKLTemporalDecoder(SVDVae):
+        @classmethod
+        def from_pretrained(cls, repo, subfolder=None, **kwargs):
+            made["svd"] = cls(seed=seed, device="cpu")
+            return made["svd"]
+
+    class NetLinLayer(nn.Module):
+        def __init__(self, channels):
+            super().__init__()
+            self.model = nn.Sequential(nn.Dropout(), nn.Conv2d(channels, 1, 1, bias=False))
+
+    class LPIPS(nn.Module):
+        def __init__(self, net="alex", spatial=False):
+            super().__init__()
+            if net != "alex" or spatial:
+                raise ValueError("the stand-in is AlexNet-LPIPS without spatial maps")
+            gen = torch.Generator().manual_seed(seed)
+            layers = []
+            for i, (cin, cout, k, stride, pad) in enumerate(ALEXNET_CONVS):
+                if i in (1, 2):
+                    layers.append(nn.MaxPool2d(3, 2))
+                conv = nn.Conv2d(cin, cout, k, stride=stride, padding=pad)
+                with torch.no_grad():
+                    conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen)
+                                      * math.sqrt(2.0 / (cin * k * k)))
+                    conv.bias.copy_(0.1 * torch.randn(cout, generator=gen))
+                layers += [conv, nn.ReLU()]
+            self.net = nn.Sequential(*layers)
+            self.lins = nn.ModuleList(NetLinLayer(c[1]) for c in ALEXNET_CONVS)
+            with torch.no_grad():
+                for lin in self.lins:  # non-negative, as the trained heads are
+                    lin.model[-1].weight.copy_(torch.rand(lin.model[-1].weight.shape,
+                                                          generator=gen))
+            self.register_buffer("shift", torch.tensor([-0.030, -0.088, -0.188]).view(1, 3, 1, 1))
+            self.register_buffer("scale", torch.tensor([0.458, 0.448, 0.450]).view(1, 3, 1, 1))
+            made["lpips"] = self
+
+        def _taps(self, x):
+            x, taps = (x - self.shift) / self.scale, []
+            for layer in self.net:
+                x = layer(x)
+                if isinstance(layer, nn.ReLU):
+                    taps.append(x / (torch.sqrt((x ** 2).sum(dim=1, keepdim=True)) + 1e-10))
+            return taps
+
+        def forward(self, x, y):
+            out = 0
+            for lin, a, b in zip(self.lins, self._taps(x), self._taps(y)):
+                out = out + lin.model((a - b) ** 2).mean(dim=(2, 3), keepdim=True)
+            return out
+
+    libraries = {"diffusers": types.ModuleType("diffusers"), "lpips": types.ModuleType("lpips")}
+    libraries["diffusers"].AutoencoderKLTemporalDecoder = AutoencoderKLTemporalDecoder
+    libraries["lpips"].LPIPS = LPIPS
+    return libraries, made
+
+
+def _same_tensors(got, want) -> bool:
+    """The same names and every tensor bitwise."""
+    import torch
+
+    return set(got) == set(want) and all(torch.equal(got[k], want[k].to(got[k].device))
+                                         for k in want)
+
+
+def _forward_row(got, want):
+    import torch
+
+    return {"shape": list(got.shape), "max_abs_err": (got - want).abs().max().item(),
+            "rel_l2": _rel_l2_tensors(got, want), "bitwise_forward": torch.equal(got, want),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def phase_convert(ckpt_root, card):
+    """Phase 11: the weight converters (``lfvdm_tpu_torch/scripts/convert_*``)
+    on the card, with stand-ins for their source libraries (none is on this
+    machine): a. ``convert_svd_vae.main`` and b. ``convert_lpips.main`` at
+    their default device, each stand-in registered under its library's
+    name; c. ``convert_i3d.convert`` on the seeded TF-named variables of a
+    Kinetics-400 I3D. For each, the loader on the card gives every parameter
+    bitwise equal to the source's, and one forward equals the source
+    module's on the card: a 4-frame decode to 256 px, a 64 px LPIPS batch,
+    the 16-frame clip. Seconds and bytes per converter. No port kernel
+    launches on this path."""
+    import numpy as np
+    import torch
+
+    from lfvdm_tpu_torch.evals.i3d import I3D, I3DFeatureExtractor
+    from lfvdm_tpu_torch.evals.lpips import LpipsEmbedder
+    from lfvdm_tpu_torch.models.vae import load_svd_vae
+    from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.scripts import convert_i3d, convert_lpips, convert_svd_vae
+    from lfvdm_tpu_torch.utils.convert import i3d_tf_variables_from_state_dict
+    from lfvdm_tpu_torch.utils.device import full_f32
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_convert_", dir=ckpt_root)
+    libraries, made = stand_in_libraries(CONVERT_SEED)
+    saved = {name: sys.modules.get(name) for name in libraries}
+    gen = torch.Generator().manual_seed(CONVERT_SEED + 1)
+    rows = []
+
+    def add(row):
+        emit(row)
+        rows.append(row)
+
+    ops.reset_launch_counts()
+    try:
+        sys.modules.update(libraries)
+
+        # a. The SVD VAE: main() on the card, the pair read back.
+        prefix = os.path.join(tmp, "svd_vae")
+        t0 = time.perf_counter()
+        convert_svd_vae.main(["--out", prefix])
+        main_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vae = load_svd_vae(prefix, device="cuda")
+        load_s = time.perf_counter() - t0
+        source = made["svd"]
+        frames, size = CONVERT_DECODE
+        lat = torch.randn((frames, vae.latent_channels, size, size), generator=gen).cuda()
+        with torch.no_grad(), full_f32():
+            got, want = (m.decoder(lat, num_frames=frames) for m in (vae, source))
+        npz_bytes = sum(os.path.getsize(f"{prefix}_{part}.npz") for part in ("encoder", "decoder"))
+        add({"phase": "convert_svd_vae", "card": card, "main_s": main_s, "load_s": load_s,
+             "npz_bytes": npz_bytes, "tensors": len(source.state_dict()),
+             "bitwise_parameters": _same_tensors(vae.state_dict(), source.state_dict()),
+             "source_device": str(source.device), "forward": _forward_row(got, want),
+             "forward_is": "decoder over 4 frames of latents, num_frames=4",
+             "want_shape": [frames, 3, 8 * size, 8 * size], "bound": CONVERT_BOUND})
+        del vae, source, got, want
+        made.pop("svd")
+
+        # b. LPIPS: main() on the card, the embedder on the file.
+        path = os.path.join(tmp, "lpips_alex.npz")
+        t0 = time.perf_counter()
+        convert_lpips.main(["--out", path])
+        main_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        emb = LpipsEmbedder(weights_path=path, device="cuda")
+        load_s = time.perf_counter() - t0
+        source = made.pop("lpips")
+        convs = [m for m in source.net.modules() if isinstance(m, torch.nn.Conv2d)]
+        want_sd = {f"conv{i}_{leaf}": getattr(c, leaf) for i, c in enumerate(convs, start=1)
+                   for leaf in ("weight", "bias")}
+        want_sd.update({f"lin{i}": lin.model[-1].weight.reshape(-1)
+                        for i, lin in enumerate(source.lins)})
+        x, y = (torch.rand((CONVERT_LPIPS_BATCH, 3, 64, 64), generator=gen).cuda() * 2 - 1
+                for _ in range(2))
+        with torch.no_grad(), full_f32():
+            got = ((emb.module(x) - emb.module(y)) ** 2).sum(dim=1)
+            want = source(x, y).reshape(-1)
+        row = _forward_row(got, want)
+        row["max_rel_err"] = ((got - want).abs() / want.abs()).max().item()
+        add({"phase": "convert_lpips", "card": card, "main_s": main_s, "load_s": load_s,
+             "npz_bytes": os.path.getsize(path), "tensors": len(want_sd),
+             "bitwise_parameters": _same_tensors(emb.module.state_dict(), want_sd),
+             "source_device": str(convs[0].weight.device), "forward": row,
+             "forward_is": "squared embedding distance against the source's LPIPS distance",
+             "want_shape": [CONVERT_LPIPS_BATCH], "bound": CONVERT_BOUND})
+        del emb, source, convs, want_sd
+
+        # c. I3D: convert() on the TF-named variables of a seeded Kinetics-400 I3D.
+        source = I3D().seeded_init(CONVERT_SEED)
+        with torch.no_grad():
+            for name, t in list(source.named_parameters()) + list(source.named_buffers()):
+                if name.endswith("moving_variance"):
+                    t.copy_(0.5 + torch.rand(t.shape, generator=gen))
+                elif not name.endswith("weight"):
+                    t.copy_(0.1 * torch.randn(t.shape, generator=gen))
+        variables = {f"{k}:0": v for k, v in
+                     i3d_tf_variables_from_state_dict(source.state_dict()).items()}
+        path = os.path.join(tmp, "i3d_kinetics400.npz")
+        t0 = time.perf_counter()
+        np.savez(path, **convert_i3d.convert(variables))
+        convert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ext = I3DFeatureExtractor(weights_path=path, device="cuda")
+        load_s = time.perf_counter() - t0
+        source.to("cuda").eval()
+        clip = torch.rand(CONVERT_CLIP, generator=gen).cuda() * 2 - 1
+        x = clip.permute(0, 4, 1, 2, 3)
+        got = ext.features(x)
+        with torch.no_grad(), full_f32():
+            want = source(x)
+        add({"phase": "convert_i3d", "card": card, "convert_save_s": convert_s,
+             "load_s": load_s, "npz_bytes": os.path.getsize(path), "tensors": len(variables),
+             "bitwise_parameters": _same_tensors(ext.module.state_dict(), source.state_dict()),
+             "forward": _forward_row(got, want), "forward_is": "logits of the 16-frame clip",
+             "want_shape": [1, 400], "bound": CONVERT_BOUND})
+        del ext, source, clip, x, got, want
+        launches, _ = read_counts()
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    for row in rows:
+        fwd = row["forward"]
+        err = fwd.get("max_rel_err", fwd["rel_l2"])
+        if not (row["bitwise_parameters"] and fwd["finite"] and fwd["shape"] == row["want_shape"]
+                and (fwd["bitwise_forward"] or err <= CONVERT_BOUND)):
+            raise RuntimeError(f"the {row['phase']} converter: {row}")
+    if rows[0]["source_device"] != "cuda:0" or rows[1]["source_device"] != "cuda:0":
+        raise RuntimeError("the converters' main() did not check on the card")
+    if any(launches.values()):
+        raise RuntimeError(f"the converters launched port kernels: {launches}")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4272,6 +4533,9 @@ def main() -> int:
     with torch_tf32_defaults():
         phase_evals(ckpt_root, card)
     lap("evals")
+    with torch_tf32_defaults():
+        phase_convert(ckpt_root, card)
+    lap("convert")
     launches = {"train": train_launches, "train_replay": train_replay[0],
                 "sample_video": sample_launches}
     routes = {"train": train_routes, "train_replay": train_replay[1],

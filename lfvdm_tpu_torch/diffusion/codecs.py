@@ -123,11 +123,11 @@ def make_codec_from_config(config: dict, *, vae_weights: Optional[str] = None,
     ``enc_stats_mean``/``enc_stats_std`` lists, then the dataset registry's
     stats file (``data.datasets.load_encoding_stats``), then identity stats
     with a warning. ``vae_weights`` (or $LFVDM_VAE_WEIGHTS) names the
-    ``<prefix>_{encoder,decoder}.npz`` pair of scripts/convert_svd_vae.py;
-    without it the decode stops at de-normalized latents unless
-    ``require_vae`` asks for a random-init VAE of the published widths. A
-    VAE is built on ``device``. An online (not pre-encoded) latent config
-    with no VAE raises.
+    ``<prefix>_{encoder,decoder}.npz`` pair of ``scripts/convert_svd_vae.py``
+    (the port's or the repo's); without it the decode stops at de-normalized
+    latents unless ``require_vae`` asks for a random-init VAE of the
+    published widths. A VAE is built on ``device``. An online (not
+    pre-encoded) latent config with no VAE raises.
     """
     space = config.get("diffusion_space", "pixel")
     if space in (None, "pixel"):
@@ -159,7 +159,8 @@ def make_codec_from_config(config: dict, *, vae_weights: Optional[str] = None,
         return PreEncodedLatentCodec(mean=stats["mean"], std=stats["std"], vae=vae)
     if vae is None:
         raise ValueError("a latent config that is not pre-encoded needs VAE weights "
-                         "(vae_weights= or $LFVDM_VAE_WEIGHTS; see scripts/convert_svd_vae.py)")
+                         "(vae_weights= or $LFVDM_VAE_WEIGHTS; see "
+                         "lfvdm_tpu_torch.scripts.convert_svd_vae)")
     return VAECodec(vae=vae)
 
 

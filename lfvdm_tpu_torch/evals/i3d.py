@@ -10,8 +10,9 @@ shifted values, so each layer ``F.pad``s explicitly: with 0 before a
 convolution, with -inf before a max pool (as ``flax.linen.max_pool`` pads).
 BatchNorm is TF slim's: beta only, eps 1e-3, frozen moments.
 
-Weights: the JAX package's flat ``.npz`` (keys as the repo's
-``scripts/convert_i3d.py::tf_var_to_flax`` writes them, such as
+Weights: the JAX package's flat ``.npz`` (keys as
+``python -m lfvdm_tpu_torch.scripts.convert_i3d`` and the repo's
+``scripts/convert_i3d.py`` write them from the TF-Hub graph, such as
 ``params/Mixed_3b/Branch_0/Conv3d_0a_1x1/conv_3d/kernel``), from a path or
 from ``$LFVDM_I3D_WEIGHTS``; ``utils.convert.i3d_state_dict_from_jax`` maps
 it onto this module's names (the same path with ``.`` for ``/``). Without

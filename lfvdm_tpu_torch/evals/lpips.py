@@ -13,8 +13,10 @@ Each stage is flattened in (H, W, C) order, as the JAX package's NHWC
 embedding is, so the two packages give the same vector on the same weights.
 
 Weights: the JAX embedder's ``.npz`` (``conv{i}.kernel`` HWIO, ``conv{i}.bias``,
-``lin{i}``; written by the repo's ``scripts/convert_lpips.py``), from a path or
-from ``$LFVDM_LPIPS_WEIGHTS``.
+``lin{i}``), from a path or from ``$LFVDM_LPIPS_WEIGHTS``. The port's
+``python -m lfvdm_tpu_torch.scripts.convert_lpips`` writes it from the
+``lpips`` package's AlexNet weights, the same file as the repo's
+``scripts/convert_lpips.py``.
 """
 
 from __future__ import annotations
@@ -77,16 +79,10 @@ class LpipsEmbedderModule(nn.Module):
 
     def load_npz(self, path: str):
         """The JAX embedder's ``.npz`` (HWIO kernels)."""
-        data = np.load(path)
-        with torch.no_grad():
-            for i in range(1, len(_CONVS) + 1):
-                kernel = np.asarray(data[f"conv{i}.kernel"], np.float32).transpose(3, 2, 0, 1)
-                getattr(self, f"conv{i}_weight").copy_(torch.from_numpy(kernel))
-                getattr(self, f"conv{i}_bias").copy_(
-                    torch.from_numpy(np.asarray(data[f"conv{i}.bias"], np.float32)))
-            for i in range(len(_CONVS)):
-                getattr(self, f"lin{i}").copy_(
-                    torch.from_numpy(np.asarray(data[f"lin{i}"], np.float32)))
+        from ..utils.convert import lpips_state_dict_from_npz
+
+        with np.load(path) as data:
+            self.load_state_dict(lpips_state_dict_from_npz(data))
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

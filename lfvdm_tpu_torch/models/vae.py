@@ -18,12 +18,14 @@ Module names are diffusers' own (``encoder.down_blocks.{i}.resnets.{j}``,
 ``…downsamplers.0.conv``, ``encoder.mid_block.attentions.0.to_out.0``,
 ``quant_conv``, ``decoder.up_blocks.{i}.resnets.{j}.time_mixer.mix_factor``,
 ``decoder.time_conv_out``, ...): a diffusers state dict loads with
-``load_state_dict``, and ``scripts/convert_svd_vae.py`` maps this module's
-``state_dict`` into the JAX package's variables. Activations are NCHW
-(NCTHW in the temporal blocks), GroupNorm eps 1e-6, and everything runs in
-f32, as the JAX VAE does. The mid-block attention is one head over the
-pixel tokens with f32 logits and softmax in plain ``torch.matmul``: the JAX
-package computes it outside any Pallas kernel.
+``load_state_dict``. ``python -m lfvdm_tpu_torch.scripts.convert_svd_vae``
+writes diffusers' weights as the ``<prefix>_{encoder,decoder}.npz`` pair of
+the JAX package's variables (the files the repo's
+``scripts/convert_svd_vae.py`` writes), which ``load_svd_vae`` reads.
+Activations are NCHW (NCTHW in the temporal blocks), GroupNorm eps 1e-6,
+and everything runs in f32, as the JAX VAE does. The mid-block attention is
+one head over the pixel tokens with f32 logits and softmax in plain
+``torch.matmul``: the JAX package computes it outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -348,7 +350,7 @@ class SVDVae(nn.Module):
             dec_cfg = decoder_config_from_state_dict(state_dict)
         else:
             print("SVD VAE weights unavailable — randomly initialized "
-                  "(convert with scripts/convert_svd_vae.py).")
+                  "(convert with lfvdm_tpu_torch.scripts.convert_svd_vae).")
             enc_cfg = dict(block_out_channels=tuple(block_out_channels),
                            layers_per_block=layers_per_block, latent_channels=latent_channels)
             dec_cfg = dict(enc_cfg)
@@ -409,8 +411,9 @@ class SVDVae(nn.Module):
 
 def load_svd_vae(path_prefix: str, **kwargs) -> SVDVae:
     """An SVDVae from the ``<prefix>_{encoder,decoder}.npz`` pair that
-    scripts/convert_svd_vae.py writes (the JAX package's variable trees,
-    flattened with "/"); ``kwargs`` go to ``SVDVae`` (``device``)."""
+    ``lfvdm_tpu_torch.scripts.convert_svd_vae`` (or the repo's
+    scripts/convert_svd_vae.py) writes: the JAX package's variable trees,
+    flattened with "/". ``kwargs`` go to ``SVDVae`` (``device``)."""
     from ..utils.convert import vae_state_dict_from_jax
 
     def tree(path):

@@ -16,10 +16,10 @@ second pass rewrites every encoded file of both splits as (x - mean) / (std +
 1e-8) with the train split's statistics.
 
 The VAE comes from ``--vae_weights``' ``<prefix>_{encoder,decoder}.npz`` pair
-(scripts/convert_svd_vae.py), else it is the seeded random one. It runs on the
-card unless ``--device cpu``; a missing card raises. Each video goes to the
-device as uint8 and is mapped and upsampled there chunk by chunk; its means
-come back in one copy.
+(``convert_svd_vae``, the port's or the repo's), else it is the seeded
+random one. It runs on the card unless ``--device cpu``; a missing card
+raises. Each video goes to the device as uint8 and is mapped and upsampled
+there chunk by chunk; its means come back in one copy.
 """
 
 from __future__ import annotations

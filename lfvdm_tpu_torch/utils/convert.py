@@ -22,6 +22,15 @@ maps the JAX I3D's flat ``.npz`` (or variables) onto ``evals/i3d.py``, and
 variables onto torchvision's layout, the exact inverse of
 ``lfvdm_tpu/evals/carla_regressor.py``'s ``convert_resnet152_state_dict``.
 
+The port's weight converters (``lfvdm_tpu_torch/scripts/convert_*.py``)
+write the files the JAX package's converters write, through the mappings
+the other way: ``vae_jax_from_state_dict`` (diffusers' names -> the JAX
+VAE's variables, the inverse of ``vae_state_dict_from_jax``),
+``i3d_npz_entry_from_tf`` (a TF-Hub I3D variable -> its ``.npz`` entry;
+``i3d_tf_variables_from_state_dict`` goes back from ``evals/i3d.py``) and
+``lpips_npz_from_state_dict`` (the LPIPS embedder's weights -> its
+``.npz``; ``lpips_state_dict_from_npz`` is its inverse).
+
 Layouts:
   flax Dense kernel (in, out)         -> torch Linear weight (out, in)
   flax Conv kernel (kh, kw, in, out)  -> torch Conv2d weight (out, in, kh, kw)
@@ -370,16 +379,110 @@ def vae_state_dict_from_jax(enc_vars: Mapping, dec_vars: Mapping) -> Dict[str, t
     return sd
 
 
+# The other way, what the port's converters write: a source model's weights
+# (tensors or numpy) -> the JAX package's layout, each array in its own dtype
+# as the JAX scripts keep it (the U-Net's ``_j*`` helpers above cast to f32,
+# the dtype of flax's exported trees).
+
+
+def _arr(sd, key) -> np.ndarray:
+    v = sd[key]
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def _kconv(sd, prefix):
+    """A conv of any rank: weight (out, in, *spatial) -> kernel (*spatial, in, out)."""
+    w = _arr(sd, f"{prefix}.weight")
+    return {"kernel": w.transpose(*range(2, w.ndim), 1, 0), "bias": _arr(sd, f"{prefix}.bias")}
+
+
+def _kdense(sd, prefix):
+    return {"kernel": _arr(sd, f"{prefix}.weight").T, "bias": _arr(sd, f"{prefix}.bias")}
+
+
+def _kgn(sd, prefix):
+    return {"scale": _arr(sd, f"{prefix}.weight"), "bias": _arr(sd, f"{prefix}.bias")}
+
+
+def _kvae_resnet(sd, prefix):
+    out = {"norm1": _kgn(sd, f"{prefix}.norm1"), "conv1": _kconv(sd, f"{prefix}.conv1"),
+           "norm2": _kgn(sd, f"{prefix}.norm2"), "conv2": _kconv(sd, f"{prefix}.conv2")}
+    if f"{prefix}.conv_shortcut.weight" in sd:
+        out["conv_shortcut"] = _kconv(sd, f"{prefix}.conv_shortcut")
+    return out
+
+
+def _kvae_attn(sd, prefix):
+    out = {"group_norm": _kgn(sd, f"{prefix}.group_norm")}
+    for name in ("to_q", "to_k", "to_v"):
+        out[name] = _kdense(sd, f"{prefix}.{name}")
+    out["to_out"] = _kdense(sd, f"{prefix}.to_out.0")
+    return out
+
+
+def _kvae_st_resblock(sd, prefix):
+    return {"spatial_res_block": _kvae_resnet(sd, f"{prefix}.spatial_res_block"),
+            "temporal_res_block": _kvae_resnet(sd, f"{prefix}.temporal_res_block"),
+            "mix_factor": _arr(sd, f"{prefix}.time_mixer.mix_factor").reshape(1)}
+
+
+def vae_jax_from_state_dict(state_dict: Mapping) -> Tuple[dict, dict]:
+    """A state dict with diffusers' SVD VAE names (diffusers' own, or
+    ``models.vae.SVDVae``'s) -> the JAX package's ``Encoder`` and
+    ``TemporalDecoder`` variables ``({"params": ...}, {"params": ...})``:
+    the exact inverse of ``vae_state_dict_from_jax``, and the keys, layouts
+    and dtypes of the repo's ``scripts/convert_svd_vae.py``. The number of
+    blocks and of resnets per block is read from the names."""
+    sd = dict(state_dict)
+    enc = {"conv_in": _kconv(sd, "encoder.conv_in"),
+           "mid_res_1": _kvae_resnet(sd, "encoder.mid_block.resnets.0"),
+           "mid_attn": _kvae_attn(sd, "encoder.mid_block.attentions.0"),
+           "mid_res_2": _kvae_resnet(sd, "encoder.mid_block.resnets.1"),
+           "conv_norm_out": _kgn(sd, "encoder.conv_norm_out"),
+           "conv_out": _kconv(sd, "encoder.conv_out"),
+           "quant_conv": _kconv(sd, "quant_conv")}
+    i = 0
+    while f"encoder.down_blocks.{i}.resnets.0.conv1.weight" in sd:
+        j = 0
+        while f"encoder.down_blocks.{i}.resnets.{j}.conv1.weight" in sd:
+            enc[f"down_{i}_res_{j}"] = _kvae_resnet(sd, f"encoder.down_blocks.{i}.resnets.{j}")
+            j += 1
+        if f"encoder.down_blocks.{i}.downsamplers.0.conv.weight" in sd:
+            enc[f"down_{i}_downsample"] = {
+                "conv": _kconv(sd, f"encoder.down_blocks.{i}.downsamplers.0.conv")}
+        i += 1
+    dec = {"conv_in": _kconv(sd, "decoder.conv_in"),
+           "mid_res_1": _kvae_st_resblock(sd, "decoder.mid_block.resnets.0"),
+           "mid_attn": _kvae_attn(sd, "decoder.mid_block.attentions.0"),
+           "mid_res_2": _kvae_st_resblock(sd, "decoder.mid_block.resnets.1"),
+           "conv_norm_out": _kgn(sd, "decoder.conv_norm_out"),
+           "conv_out": _kconv(sd, "decoder.conv_out"),
+           "time_conv_out": _kconv(sd, "decoder.time_conv_out")}
+    i = 0
+    while f"decoder.up_blocks.{i}.resnets.0.time_mixer.mix_factor" in sd:
+        j = 0
+        while f"decoder.up_blocks.{i}.resnets.{j}.time_mixer.mix_factor" in sd:
+            dec[f"up_{i}_res_{j}"] = _kvae_st_resblock(sd, f"decoder.up_blocks.{i}.resnets.{j}")
+            j += 1
+        if f"decoder.up_blocks.{i}.upsamplers.0.conv.weight" in sd:
+            dec[f"up_{i}_upsample"] = {
+                "conv": _kconv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv")}
+        i += 1
+    return {"params": enc}, {"params": dec}
+
+
 # ---------------------------------------------------------------------------
 # The evals: I3D and the CARLA ResNet-152s
 # ---------------------------------------------------------------------------
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict -> one level, its keys joined with "/" (the flat
+    ``.npz`` keys of the JAX package's weight files)."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            out.update(_flatten(v, f"{prefix}{k}/"))
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
         else:
             out[f"{prefix}{k}"] = np.asarray(v)
     return out
@@ -394,7 +497,7 @@ def i3d_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     flatten to the same keys). ``<path>`` becomes the module path with ``.``
     for ``/``; a (kt, kh, kw, in, out) kernel becomes (out, in, kt, kh, kw)."""
     sd: Dict[str, torch.Tensor] = {}
-    for key, value in _flatten(variables).items():
+    for key, value in flatten_tree(variables).items():
         parts = key.split("/")[1:]  # drop the collection
         leaf = parts.pop()
         if parts[-1] == "conv_3d":
@@ -403,6 +506,90 @@ def i3d_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             sd[".".join(parts + ["weight"])] = _t(np.asarray(value).transpose(4, 3, 0, 1, 2))
         else:
             sd[".".join(parts + [leaf])] = _t(value)
+    return sd
+
+
+I3D_TF_SCOPE = "RGB/inception_i3d"  # the TF-Hub graph's variable scope
+
+
+def i3d_npz_entry_from_tf(name: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    """One TF-slim variable of the TF-Hub I3D graph -> its key and array in
+    the flat ``.npz`` (the port's copy of ``tf_var_to_flax`` in the repo's
+    ``scripts/convert_i3d.py``).
+
+    ``RGB/inception_i3d/<path>/conv_3d/w`` -> ``params/<path>/conv_3d/kernel``
+    (TF's (t, h, w, in, out) as it is), ``.../conv_3d/b`` -> ``.../bias``,
+    ``<path>/batch_norm/beta`` -> ``params/<path>/beta`` and
+    ``.../moving_mean``, ``.../moving_variance`` -> ``batch_stats/<path>/…``,
+    each flattened to (C,)."""
+    parts = name.split("/")
+    if parts[:2] != I3D_TF_SCOPE.split("/"):
+        raise ValueError(f"not a variable of the I3D graph: {name}")
+    parts = parts[2:]
+    if parts[-1] == "w":
+        return "params/" + "/".join(parts[:-1]) + "/kernel", value
+    if parts[-1] == "b":
+        return "params/" + "/".join(parts[:-1]) + "/bias", value
+    if parts[-2] == "batch_norm":
+        base, leaf = "/".join(parts[:-2]), parts[-1]
+        if leaf == "beta":
+            return f"params/{base}/beta", value.reshape(-1)
+        if leaf in ("moving_mean", "moving_variance"):
+            return f"batch_stats/{base}/{leaf}", value.reshape(-1)
+    raise ValueError(f"unmapped variable {name}")
+
+
+def i3d_tf_variables_from_state_dict(state_dict: Mapping) -> Dict[str, np.ndarray]:
+    """``evals.i3d.I3D``'s state_dict -> the TF-Hub graph's variables by name
+    (without ``:0``), in TF's layouts: a conv's ``w`` (t, h, w, in, out) and
+    ``b``, and the batch norm's ``beta``, ``moving_mean`` and
+    ``moving_variance`` of shape (1, 1, 1, 1, C). What
+    ``i3d_npz_entry_from_tf`` and then ``i3d_state_dict_from_jax`` map back."""
+    out = {}
+    for key in state_dict:
+        *path, leaf = key.split(".")
+        scope = f"{I3D_TF_SCOPE}/{'/'.join(path)}"
+        value = _arr(state_dict, key)
+        if leaf == "weight":
+            out[f"{scope}/conv_3d/w"] = value.transpose(2, 3, 4, 1, 0)
+        elif leaf == "bias":
+            out[f"{scope}/conv_3d/b"] = value
+        else:
+            out[f"{scope}/batch_norm/{leaf}"] = value.reshape(1, 1, 1, 1, -1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The LPIPS embedder
+# ---------------------------------------------------------------------------
+
+LPIPS_STAGES = 5  # AlexNet's five convolutions, each with its head
+
+
+def lpips_npz_from_state_dict(state_dict: Mapping) -> Dict[str, np.ndarray]:
+    """``evals.lpips.LpipsEmbedderModule``'s state_dict (``conv{i}_weight``
+    (out, in, k, k), ``conv{i}_bias``, ``lin{i}`` (C,)) -> the embedder
+    ``.npz``: ``conv{i}.kernel`` in HWIO, ``conv{i}.bias`` and ``lin{i}``
+    flattened to (C,), each in its own dtype (the mapping the repo's
+    ``scripts/convert_lpips.py`` does inline)."""
+    out = {}
+    for i in range(1, LPIPS_STAGES + 1):
+        out[f"conv{i}.kernel"] = _arr(state_dict, f"conv{i}_weight").transpose(2, 3, 1, 0)
+        out[f"conv{i}.bias"] = _arr(state_dict, f"conv{i}_bias")
+    for i in range(LPIPS_STAGES):
+        out[f"lin{i}"] = _arr(state_dict, f"lin{i}").reshape(-1)
+    return out
+
+
+def lpips_state_dict_from_npz(npz: Mapping) -> Dict[str, torch.Tensor]:
+    """The embedder ``.npz`` -> ``LpipsEmbedderModule``'s state_dict (f32):
+    the inverse of ``lpips_npz_from_state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, LPIPS_STAGES + 1):
+        sd[f"conv{i}_weight"] = _t(np.asarray(npz[f"conv{i}.kernel"]).transpose(3, 2, 0, 1))
+        sd[f"conv{i}_bias"] = _t(npz[f"conv{i}.bias"])
+    for i in range(LPIPS_STAGES):
+        sd[f"lin{i}"] = _t(npz[f"lin{i}"])
     return sd
 
 

@@ -378,3 +378,35 @@ def test_serving_process_blocks_the_model_code():
                  "lfvdm_tpu_torch.diffusion", "jax", "lfvdm_tpu"):
         assert name in chip_smoke.SERVE_BLOCKED
     assert "lfvdm_tpu_torch.ops" not in code.split("BLOCKED =")[1].split("\n")[0]
+
+
+def test_lpips_stand_in_is_the_lpips_distance(tmp_path, monkeypatch):
+    """Phase 11's ``lpips`` stand-in computes the LPIPS distance as the
+    ``lpips`` package does (the independent fixture, given the same
+    weights), and ``convert_lpips.main`` drives it as it drives the package."""
+    import sys
+    from pathlib import Path
+
+    from lfvdm_tpu_torch.scripts import convert_lpips
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "fixtures"))
+    try:
+        import torch_lpips_fixture
+    finally:
+        sys.path.pop(0)
+    libraries, made = chip_smoke.stand_in_libraries(3)
+    monkeypatch.setitem(sys.modules, "lpips", libraries["lpips"])
+    out = str(tmp_path / "lpips_alex.npz")
+    convert_lpips.main(["--out", out, "--device", "cpu"])
+    stand_in, ref = made["lpips"], torch_lpips_fixture.LPIPS().eval()
+    ours = [m for m in stand_in.net.modules() if isinstance(m, torch.nn.Conv2d)]
+    theirs = [m for m in ref.net.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        for a, b in zip(ours, theirs):
+            b.weight.copy_(a.weight)
+            b.bias.copy_(a.bias)
+        for a, b in zip(stand_in.lins, ref.lins):
+            b.model[-1].weight.copy_(a.model[-1].weight)
+        x, y = (torch.rand((3, 3, 64, 64), generator=torch.Generator().manual_seed(s)) * 2 - 1
+                for s in (1, 2))
+        torch.testing.assert_close(stand_in(x, y), ref(x, y), rtol=1e-5, atol=1e-7)

@@ -1,9 +1,10 @@
 """The port's CLIs accept every flag of the repo's JAX scripts, with the
 same default, and add only ``--device``; their ``--help`` runs in a fresh
 interpreter where JAX, flax, orbax and the JAX package cannot be imported.
-The JAX ``video_optimal_schedule.py``, ``carla_regressor_train.py`` and the
-two export scripts build their parsers inside ``main()``: those are caught
-at ``parse_args``. ``export_sampler``'s ``--device`` takes the place of the
+The JAX ``video_optimal_schedule.py``, ``carla_regressor_train.py``, the
+two export scripts and the three weight converters build their parsers
+inside ``main()``: those are caught at ``parse_args``. The converters'
+source libraries are blocked too. ``export_sampler``'s ``--device`` takes the place of the
 JAX script's ``--platform``; ``export_params`` selects no device and adds
 nothing.
 """
@@ -18,6 +19,9 @@ import pytest
 
 from lfvdm_tpu_torch.scripts import (
     carla_regressor_train,
+    convert_i3d,
+    convert_lpips,
+    convert_svd_vae,
     export_params,
     export_sampler,
     video_fvd,
@@ -33,7 +37,8 @@ PORT = {"video_sample": video_sample, "video_train": video_train,
         "video_optimal_schedule": video_optimal_schedule, "video_fvd": video_fvd,
         "video_to_world_coords": video_to_world_coords, "video_make_mp4": video_make_mp4,
         "carla_regressor_train": carla_regressor_train, "export_sampler": export_sampler,
-        "export_params": export_params}
+        "export_params": export_params, "convert_svd_vae": convert_svd_vae,
+        "convert_lpips": convert_lpips, "convert_i3d": convert_i3d}
 # Flags of a JAX script that the port's names otherwise, and flags the port adds.
 RENAMED = {"export_sampler": {"--platform": "--device"}}
 ADDED = {"export_sampler": set(), "export_params": set()}
@@ -121,7 +126,9 @@ def test_same_values_parsed(name):
             "export_sampler": ["--random_init", "True", "--out", "o", "--batch_size", "2",
                                "--use_ddim", "yes", "--eta", "0.5", "--image_size", "32",
                                "--timestep_respacing", "ddim25", "--ema_rate", "raw"],
-            "export_params": ["run", "--step", "3", "--ema_rate", "raw"]}[name]
+            "export_params": ["run", "--step", "3", "--ema_rate", "raw"],
+            "convert_svd_vae": ["--out", "w/vae"], "convert_lpips": ["--out", "w/l.npz"],
+            "convert_i3d": ["--out", "w/i3d.npz"]}[name]
     want = vars(_jax_parser(name).parse_args(argv))
     got = vars(PORT[name].create_argparser().parse_args(argv))
     for jax_dest, dest in RENAMED.get(name, {}).items():
@@ -134,7 +141,8 @@ def test_same_values_parsed(name):
 
 HELP = """
 import importlib.abc, runpy, sys
-BLOCKED = ("jax", "flax", "optax", "orbax", "lfvdm_tpu", "scripts", "diffusers")
+BLOCKED = ("jax", "flax", "optax", "orbax", "lfvdm_tpu", "scripts", "diffusers", "lpips",
+           "tensorflow", "tensorflow_hub")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:

@@ -3,14 +3,19 @@
 An AST scan of every module of ``lfvdm_tpu_torch`` and of ``chip_smoke.py``
 (which runs on a machine without JAX) for ``import`` statements naming
 ``jax``, ``flax``, ``optax``, ``orbax``, ``lfvdm_tpu``, the repo's
-``scripts``, ``diffusers`` (on neither machine) or ``msgpack`` (not on the
-card's machine: the port reads and writes flax's files itself); and the
+``scripts``, ``diffusers`` (on neither machine), ``lpips``, ``tensorflow``,
+``tensorflow_hub`` or ``msgpack`` (not on the card's machine: the port reads
+and writes flax's files itself). One allowance: each weight converter
+(``scripts/convert_{svd_vae,lpips,i3d}.py``) imports its own source library
+(``diffusers``; ``lpips``; ``tensorflow`` and ``tensorflow_hub``), and only
+inside ``main``, since converting needs it. And the
 latent slice's modules, the entry points and their data, checkpoint and
 logging modules, the LPIPS embedder, the optimal-schedule script, the evals
 (FVD, I3D, the CARLA regressor) with their four scripts, and the serving
 module, the msgpack reader and writer, the two export scripts, the
-parallel package (meshes and sharding) and the latent pre-encoding script
-imported in a fresh interpreter where those names cannot be found.
+parallel package (meshes and sharding), the latent pre-encoding script and
+the three weight converters imported in a fresh interpreter where those
+names cannot be found.
 """
 
 import ast
@@ -21,18 +26,39 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "lfvdm_tpu", "scripts", "diffusers", "msgpack")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "lfvdm_tpu", "scripts", "diffusers", "msgpack",
+             "lpips", "tensorflow", "tensorflow_hub")
 FILES = sorted((ROOT / "lfvdm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# The one allowance: a converter's own source library, imported inside main().
+SOURCE_LIBRARIES = {"lfvdm_tpu_torch/scripts/convert_svd_vae.py": {"diffusers"},
+                    "lfvdm_tpu_torch/scripts/convert_lpips.py": {"lpips"},
+                    "lfvdm_tpu_torch/scripts/convert_i3d.py": {"tensorflow", "tensorflow_hub"}}
 
 
-def _imported_modules(path):
-    tree = ast.parse(path.read_text(), filename=str(path))
+def _import_names(tree):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module
+
+
+def _imported_modules(path):
+    yield from _import_names(ast.parse(path.read_text(), filename=str(path)))
+
+
+def _outside_and_inside_main(path):
+    """(the modules imported outside the module's top-level ``main``, those
+    imported inside it)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    inside = [name for node in tree.body
+              if isinstance(node, ast.FunctionDef) and node.name == "main"
+              for name in _import_names(node)]
+    outside = list(_import_names(tree))
+    for name in inside:
+        outside.remove(name)
+    return outside, inside
 
 
 def _forbidden(name):
@@ -65,14 +91,25 @@ def test_scan_covers_the_package():
                      "lfvdm_tpu_torch/scripts/export_params.py",
                      "lfvdm_tpu_torch/parallel/__init__.py", "lfvdm_tpu_torch/parallel/mesh.py",
                      "lfvdm_tpu_torch/parallel/sharding.py",
-                     "lfvdm_tpu_torch/scripts/encode_latent.py", "chip_smoke.py"):
+                     "lfvdm_tpu_torch/scripts/encode_latent.py", "chip_smoke.py",
+                     *SOURCE_LIBRARIES):
         assert expected in names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_imports(path):
-    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    allowed = SOURCE_LIBRARIES.get(path.relative_to(ROOT).as_posix(), set())
+    outside, inside = _outside_and_inside_main(path)
+    bad = [m for m in outside if _forbidden(m)]
+    bad += [m for m in inside if _forbidden(m) and m.split(".")[0] not in allowed]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("rel", sorted(SOURCE_LIBRARIES))
+def test_converters_import_their_library_only_in_main(rel):
+    outside, inside = _outside_and_inside_main(ROOT / rel)
+    assert {m.split(".")[0] for m in inside if _forbidden(m)} == SOURCE_LIBRARIES[rel]
+    assert not [m for m in outside if _forbidden(m)]
 
 
 def test_forbidden_matches_only_the_jax_side():
@@ -80,6 +117,8 @@ def test_forbidden_matches_only_the_jax_side():
     assert _forbidden("optax") and _forbidden("orbax.checkpoint")
     assert _forbidden("scripts.convert_svd_vae") and _forbidden("diffusers")
     assert _forbidden("msgpack") and not _forbidden("lfvdm_tpu_torch.utils.msgpack")
+    assert _forbidden("lpips") and not _forbidden("lfvdm_tpu_torch.evals.lpips")
+    assert _forbidden("tensorflow.compat.v1") and _forbidden("tensorflow_hub")
     assert not _forbidden("lfvdm_tpu_torch.ops") and not _forbidden("torch")
 
 
@@ -108,7 +147,8 @@ import lfvdm_tpu_torch.scripts.video_make_mp4, lfvdm_tpu_torch.scripts.carla_reg
 import lfvdm_tpu_torch.serving, lfvdm_tpu_torch.utils.msgpack
 import lfvdm_tpu_torch.scripts.export_sampler, lfvdm_tpu_torch.scripts.export_params
 import lfvdm_tpu_torch.parallel, lfvdm_tpu_torch.parallel.mesh, lfvdm_tpu_torch.parallel.sharding
-import lfvdm_tpu_torch.scripts.encode_latent
+import lfvdm_tpu_torch.scripts.encode_latent, lfvdm_tpu_torch.scripts.convert_svd_vae
+import lfvdm_tpu_torch.scripts.convert_lpips, lfvdm_tpu_torch.scripts.convert_i3d
 bad = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("ok")
