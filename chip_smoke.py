@@ -23,7 +23,15 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                attention also its operations at the f32 CUDA-core rate);
                then one edge shape per kernel fault repaired, in f32 and
                bf16: temporal attention over 40 frames, spatial attention
-               with 192-wide heads (FMA route).
+               with 192-wide heads (FMA route). Then the optimizer's
+               single-pass AdamW + EMA kernel (fused_adamw_ema) on the
+               flagship's 432 parameter tensors (80,358,147 f32 elements;
+               f32 and bf16 copies) against its plain version, with EMAs at
+               0.9999 and 0.5 drawn apart from the parameters and weight
+               decay 0.2, each element within its limit and each limit able
+               to see a skipped store or decay; timed on TrainLoop's update
+               (one EMA at 0.9999, no decay) beside torch._fused_adamw_
+               (AdamW alone, the nearest library call) and its bytes bound.
   4. unet    — the flagship U-Net (128 px, B=2, K=20, bf16, random non-zero
                weights) on the kernel path against the plain path (and the
                same weights in f32), and with the fused skip projection against
@@ -116,23 +124,37 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                the latent config after phase 8 d), from two identical states
                and one set of draws: bitwise after each of 3 steps (losses,
                gradient norms, parameters, Adam moments and count, EMA); every
-               replay with no host sync (set_sync_debug_mode("error")) and
-               7 + 7 + 10 launches (latent 7 + 7 + 8) on "mma"/"bulk"; a NaN
+               replay with no host sync (set_sync_debug_mode("error")),
+               7 + 7 + 10 launches (latent 7 + 7 + 8) on "mma"/"bulk" and one
+               fused_adamw_ema launch (counts reset before and read after
+               each replay); a NaN
                batch replayed leaves every bit of the state; ms per step both
                ways in turns (CUDA events and wall), and 6 replays back to back
                (the bare replay beside the loop's back-to-back steps); each
                way's device busy time and idle share from the profiler, which
                must name each kernel inside the replays; capture seconds, pool
-               bytes, peak memory.
+               bytes, peak memory; the update's device busy ms (update_state
+               on random gradients, from the profiler) and EMA bytes. On the
+               flagship also with LFVDM_BF16_EMA=1, from fresh states. Then
+               both EMA arms' updates from one set of gradients over 3
+               steps: parameters, moments and count bitwise the same, the
+               bf16 copies within 2 bf16 ulps of the f32 ones.
   7. parity  — one train step's loss and gradients on the kernel path against
                impl="plain", in bf16 and in f32 (TF32 off).
   7b. parallel — data parallelism and remat (lfvdm_tpu_torch/parallel) on the
                flagship config, on the one card:
-               a. remat  — one train step with use_checkpoint=True and one
-                           without (dropout 0.1, the same masks): loss and
-                           gradients within 5e-3 in bf16 and 1e-5 in f32;
-                           peak memory and ms per step both ways; 14 + 14 + 20
-                           launches per step with remat, 7 + 7 + 10 without;
+               a. remat  — one train step without use_checkpoint and one
+                           under each LFVDM_REMAT_POLICY (gn_stats, nothing,
+                           dots, everything; dropout 0.1, the same masks,
+                           cuDNN deterministic): loss and gradients within
+                           5e-3 in bf16 and 1e-5 in f32, nothing and
+                           everything bitwise the plain step; peak memory,
+                           ms per step, launches per step and (bf16) device
+                           busy ms per step of each arm, on one model
+                           (14 + 14 + 20 under nothing and gn_stats, which
+                           recompute the kernels; 7 + 7 + 10 under dots and
+                           everything, which save their outputs, and
+                           without remat);
                b. group of one — a NCCL group of one rank: TrainLoop
                            unwrapped, through DDP and through FSDP2 on a
                            (1, 1) mesh, from one seed and one stream of
@@ -296,6 +318,18 @@ SKIP_SHAPES = [("ds16", 512, 512, 512, 8), ("ds16", 512, 384, 512, 8),
                ("ds1", 128, 128, 128, 128), ("ds1", 128, 128, 128, 128)]
 SKIP_F32_SHAPES = [SKIP_SHAPES[0], SKIP_SHAPES[8]]  # ds 16 and ds 1
 KERNEL_NAMES = ("temporal_rpe_attention", "spatial_attention", "skip_conv_stats")
+# The optimizer's kernel, beside the U-Net's three: it replaces no Pallas
+# kernel (JAX computes the LFVDM_FUSED_OPT update as an XLA fusion).
+ADAMW_NAME = "fused_adamw_ema"
+ADAMW_SOURCE = "lfvdm_tpu_torch/ops/csrc/fused_adamw_ema.cu"
+ADAMW_REPLACES = ("none (no pl.pallas_call): lfvdm_tpu/training/train_loop.py:114 "
+                  "(_fused_adamw_ema, LFVDM_FUSED_OPT, an XLA fusion of jax.tree.map)")
+ADAMW_LR, ADAMW_COUNT, ADAMW_RATE = 1e-4, 5, 0.9999
+# Phase 3's check of the kernel also runs a second EMA rate and a weight
+# decay whose terms stand well above its limits (ADAMW_SEEN times at least),
+# so that a kernel skipping an EMA store or the decay fails it.
+ADAMW_CHECK_RATE, ADAMW_CHECK_WD, ADAMW_SEEN = 0.5, 0.2, 4.0
+ADAMW_TIMED = 6  # queued calls timed (host ~4 ms each, inside the ~50 ms spin)
 PER_FORWARD = {"temporal_rpe_attention": 7, "spatial_attention": 7, "skip_conv_stats": 10}
 # The spatial kernel's route by dtype (ops/attention.py _spatial_route at the
 # flagship widths), and the SDPA backend its yardstick is pinned to.
@@ -519,7 +553,144 @@ def phase_kernels():
         results[("latent", "skip_conv_stats") + shape + ("bfloat16",)] = _skip_conv_case(
             torch.bfloat16, shape, gen, B=LATENT_B, T=LATENT_K, path="latent")
     _edge_cases(gen)
+    for ema_dtype in (torch.float32, torch.bfloat16):
+        results[(ADAMW_NAME, str(ema_dtype).split(".")[-1])] = _adamw_case(ema_dtype, gen)
     return results
+
+
+def _flagship_shapes():
+    """The flagship U-Net's parameter shapes, in order (a meta-device model)."""
+    from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
+
+    model, _ = create_model_and_diffusion(flagship_config(), device="meta")
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def _adamw_case(ema_dtype, gen):
+    """fused_adamw_ema on the flagship's parameter tensors against its plain
+    version, from a seeded state (finite flag set, count 5, TrainLoop's LR)
+    with two EMA copies at ``ema_dtype``, drawn apart from the parameters,
+    at rates ADAMW_RATE and ADAMW_CHECK_RATE, and weight decay
+    ADAMW_CHECK_WD. Each element of each part within its limit: f32 parts
+    2^-20 of |new| + |old| (a few f32 ulps: the kernel fuses multiply-adds
+    the plain version rounds apart); each EMA copy 2^-20 (f32) or 2^-7
+    (bf16: one ulp either side of a rounding) of |new|, plus 2^-20 of its
+    terms r·|old| and (1 − r)·(|p new| + |p old|) (the new parameter's own
+    limit carried through, which where the terms cancel is more than an
+    ulp of the copy). And each limit must see what a faulty
+    kernel would drop: every part's change (a skipped store) and the weight
+    decay's term lr·wd·|p| exceed their limits ADAMW_SEEN times somewhere.
+    Then device ms of the kernel on TrainLoop's update (one EMA at
+    ADAMW_RATE, no weight decay), the plain version (432 tensors of a dozen
+    launches each) and torch._fused_adamw_ on the same f32 tensors (AdamW
+    alone: no EMA, no skip flag, decoupled decay), and the bytes bound."""
+    import torch
+
+    from lfvdm_tpu_torch.ops import adamw
+
+    shapes = _flagship_shapes()
+
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    params = [rnd(s, 0.05) for s in shapes]
+    grads = [rnd(s, 1e-3) for s in shapes]
+    exp_avg = [rnd(s, 1e-4) for s in shapes]
+    exp_avg_sq = [rnd(s, 1e-4).square() for s in shapes]
+    rates = [ADAMW_RATE, ADAMW_CHECK_RATE]
+    emas = [[rnd(s, 0.05).to(ema_dtype) for s in shapes] for _ in rates]
+    finite = torch.tensor(True, device="cuda")
+    count = torch.tensor(ADAMW_COUNT, dtype=torch.int64, device="cuda")
+
+    def state(n_rates=len(rates)):
+        return ([t.clone() for t in params], grads, [t.clone() for t in exp_avg],
+                [t.clone() for t in exp_avg_sq], [[t.clone() for t in e] for e in emas[:n_rates]])
+
+    def run(st, impl, wd=0.0):
+        adamw.fused_adamw_ema(*st, finite, count, lr=ADAMW_LR, weight_decay=wd,
+                              rates=rates[:len(st[4])], impl=impl)
+
+    got, want = state(), state()
+    adamw.fused_adamw_ema.launches = 0
+    run(got, "auto", ADAMW_CHECK_WD)
+    run(want, "plain", ADAMW_CHECK_WD)
+    torch.cuda.synchronize()
+    launched, per_call = adamw.fused_adamw_ema.launches, adamw.fused_adamw_ema.launches_per_call
+    parts = {"params": (got[0], want[0], params), "exp_avg": (got[2], want[2], exp_avg),
+             "exp_avg_sq": (got[3], want[3], exp_avg_sq)}
+    parts.update({f"ema_{r}": (got[4][i], want[4][i], emas[i]) for i, r in enumerate(rates)})
+    tiny = torch.finfo(torch.float32).tiny
+    errs, ratios, seen = {}, {}, {}
+    for part, (a, b, old) in parts.items():
+        errs[part], ratios[part], seen[part] = 0.0, 0.0, 0.0
+        rate = rates[int(part == f"ema_{rates[1]}")] if part.startswith("ema_") else None
+        for i, (x, y, o) in enumerate(zip(a, b, old)):
+            x, y, o = x.float(), y.float(), o.float()
+            if rate is None:
+                limit = 2.0 ** -20 * (y.abs() + o.abs()) + tiny
+            else:
+                # e·r + p·(1 − r) from the new parameter, which may differ by
+                # its own limit: where the two terms cancel, that is more
+                # than an ulp of the copy
+                p_new, p_old = parts["params"][1][i], parts["params"][2][i]
+                limit = (2.0 ** -7 if a[0].dtype == torch.bfloat16 else 2.0 ** -20) * y.abs() \
+                    + 2.0 ** -20 * (rate * o.abs() + (1.0 - rate) * (p_new.abs() + p_old.abs())) \
+                    + tiny
+            errs[part] = max(errs[part], (x - y).abs().max().item())
+            ratios[part] = max(ratios[part], ((x - y).abs() / limit).max().item())
+            seen[part] = max(seen[part], ((y - o).abs() / limit).max().item())
+            if part == "params":
+                decay = ADAMW_LR * ADAMW_CHECK_WD * o.abs()
+                seen["weight_decay"] = max(seen.get("weight_decay", 0.0),
+                                           (decay / limit).max().item())
+    moved = max((x - y).abs().max().item() for x, y in zip(got[0], params))
+    finite_out = all(bool(torch.isfinite(t.float()).all()) for a, _, _ in parts.values()
+                     for t in a)
+    del want, parts
+    # TrainLoop's update: one EMA copy, no weight decay. Few calls: the
+    # wrapper's ~4 ms of host time per call (432 tensors' checks and
+    # pointers) must not outlast the spin, or the events would time the host.
+    one = (got[0], grads, got[2], got[3], got[4][:1])
+    ms = cuda_ms(lambda: run(one, "auto"), ADAMW_TIMED, queued=True)
+    unqueued_ms = cuda_ms(lambda: run(one, "auto"), ADAMW_TIMED)
+    plain = state(1)
+    plain_ms = cuda_ms(lambda: run(plain, "plain"), 3, queued=True)
+    del plain
+    steps = [torch.tensor(float(ADAMW_COUNT + 1), device="cuda") for _ in params]
+    library_ms = cuda_ms(lambda: torch._fused_adamw_(
+        got[0], grads, got[2], got[3], [], steps, lr=ADAMW_LR, beta1=0.9, beta2=0.999,
+        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False), ADAMW_TIMED, queued=True)
+    n = sum(p.numel() for p in params)
+    esize = torch.finfo(ema_dtype).bits // 8
+    nbytes = n * (4 * 4 + 3 * 4 + 2 * esize)  # p, g, m, v read; p, m, v written; e both
+    flops = n * 20
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    dname = str(ema_dtype).split(".")[-1]
+    row = {"phase": "kernel", "path": "flagship", "name": ADAMW_NAME, "ema_dtype": dname,
+           "tensors": len(params), "elements": n, "rates": 1, "launches": launched,
+           "kernel_launches_per_call": per_call,
+           "check": {"rates": rates, "weight_decay": ADAMW_CHECK_WD},
+           "errs": errs, "err_over_limit": ratios, "change_over_limit": seen,
+           "max_abs_err": max(errs.values()), "param_max_change": moved, "ms": ms,
+           "unqueued_ms": unqueued_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "torch._fused_adamw_: AdamW alone (no EMA, no skip flag; decoupled "
+                      "weight decay), on the same f32 tensors",
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops}
+    emit(row)
+    del got, one, params, grads, exp_avg, exp_avg_sq, emas, steps
+    torch.cuda.empty_cache()
+    if launched != 1 or not finite_out or not moved > 0:
+        raise RuntimeError(f"fused_adamw_ema ({dname}): launched {launched}, finite "
+                           f"{finite_out}, moved {moved}")
+    for part, ratio in ratios.items():
+        if not ratio <= 1.0:
+            raise RuntimeError(f"fused_adamw_ema ({dname}): {part} at {ratio} of its limit "
+                               f"(max abs err {errs[part]})")
+    blind = {part: r for part, r in seen.items() if not r >= ADAMW_SEEN}
+    if blind:
+        raise RuntimeError(f"fused_adamw_ema ({dname}): the check cannot see a fault in "
+                           f"{blind} (change over limit below {ADAMW_SEEN})")
+    return row
 
 
 def _attention_cases(ds, shp, dtype, gen, B=FLAGSHIP_B, T=FLAGSHIP_K, path="flagship"):
@@ -749,7 +920,23 @@ def kernels_line(results, launches_by_path, routes_by_path):
         if name == "spatial_attention":
             entry["library"] = rows[0][0]["library"]
         entries.append(entry)
+    entries.append(_adamw_entry(results))
     return {"kernels": entries}
+
+
+def _adamw_entry(results):
+    """The optimizer kernel's entry: phase 3's numbers for one flagship
+    update with an f32 EMA (the bf16-EMA case beside them); ``launches``
+    counts its operator's launches in the replays of phase 6b."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    f32, bf16 = results[(ADAMW_NAME, "float32")], results[(ADAMW_NAME, "bfloat16")]
+    return {"name": ADAMW_NAME, "route": "cuda", "source": ADAMW_SOURCE,
+            "replaces": ADAMW_REPLACES, "launches": sum(FUSED_LAUNCHES.values()),
+            "launches_by_path": dict(FUSED_LAUNCHES), **{k: f32[k] for k in keys},
+            "unit": f"one flagship update, {f32['tensors']} tensors, {f32['elements']} f32 "
+                    "parameters, one f32 EMA copy",
+            "kernel_launches_per_call": f32["kernel_launches_per_call"],
+            "library": f32["library"], "bf16_ema": {k: bf16[k] for k in keys}}
 
 
 def _summed(rows):
@@ -2014,6 +2201,9 @@ def phase_train(ckpt_dir, card):
     del loop, named, p_before
     torch.cuda.empty_cache()
     replay = phase_train_graphs("flagship", cfg, FLAGSHIP_B, FLAGSHIP_K, card)
+    for env in EMA_ARMS.values():
+        phase_train_graphs("flagship", cfg, FLAGSHIP_B, FLAGSHIP_K, card, env=env)
+    _bf16_ema_vs_f32(cfg, card)
     return launches, routes, replay
 
 
@@ -2168,6 +2358,56 @@ def _check_no_host_sync(label, row):
 TRAIN_GRAPH_STEPS = 3  # steps held bitwise, captured against eager (the first captures)
 TRAIN_GRAPH_TURNS = 2  # timed turns per side (A, B, B, A), after a warm-up step each
 TRAIN_GRAPH_PROFILED = 2  # steps per side under the profiler
+# The EMA arms of phase 6b on the flagship, beyond the default one (the
+# switch is read when a train state is built), and the optimizer kernel's
+# launches in phase 6b's replays (the kernels line's main-path count).
+EMA_ARMS = {"bf16_ema": {"LFVDM_BF16_EMA": "1"}}
+FUSED_LAUNCHES = {}
+UPDATE_TIMED = 4  # update_state calls profiled per arm
+
+
+@contextlib.contextmanager
+def _environ(env):
+    """Inside, the variables of ``env`` are set; restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _arm_name(env):
+    return next((arm for arm, e in EMA_ARMS.items() if e == env), "default")
+
+
+def _update_device_ms(state):
+    """Device busy ms of one ``update_state`` on ``state`` (random
+    gradients), from the profiler: the global norm, AdamW, the EMA and the
+    skip as the arm computes them, by kernel group. Not events behind a
+    spin: the wrapper's host time per call (432 tensors' checks and
+    pointers) is about the kernel's. Changes the state."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfvdm_tpu_torch.training.train_loop import update_state
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for _, p in state.named_params():
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+    update_state(state)  # warm-up: the allocator's blocks, the kernel's library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(UPDATE_TIMED):
+            update_state(state)
+        torch.cuda.synchronize()
+    state.optimizer.zero_grad()
+    per_kernel = device_kernels_ms(prof, UPDATE_TIMED)
+    return sum(per_kernel.values()), group_ms(per_kernel)
 
 
 @contextlib.contextmanager
@@ -2223,7 +2463,8 @@ def _bitwise_diffs(a, b):
     return [n for (n, x), (_, y) in zip(a, b) if not torch.equal(bits(x), bits(y))]
 
 
-def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_counts=None):
+def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_counts=None,
+                       env=None):
     """Captured train steps (``TrainProgram``) against the eager
     ``train_step`` on ``cfg`` at (B, K), from two identical states and one
     set of draws: bitwise after each of TRAIN_GRAPH_STEPS steps (metrics,
@@ -2231,18 +2472,27 @@ def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_co
     ``per_forward`` launches on the expected routes; a NaN batch replayed
     leaves every bit of the state; ms per step both ways in turns (CUDA
     events and wall); each way's device busy time and idle share from the
-    profiler, which must name each kernel inside the replays; capture
-    seconds, pool bytes and peak memory. Returns one replay's launch counts
-    and routes."""
+    profiler, which must name each kernel inside the replays (the
+    optimizer's too: every replay launches ``fused_adamw_ema`` once, its
+    count reset before each replay and read after it); capture seconds,
+    pool bytes and peak memory. ``env``: the EMA's switch (one of
+    ``EMA_ARMS``), set while the states are built. Also the update's device
+    busy ms (``_update_device_ms``) and the EMA's bytes. Returns one
+    replay's launch counts and routes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from lfvdm_tpu_torch.ops import adamw
     from lfvdm_tpu_torch.ops import attention as ops
     from lfvdm_tpu_torch.training.graphs import TrainProgram
     from lfvdm_tpu_torch.training.train_loop import train_step
 
-    eager, diffusion = _train_state(cfg)
-    captured, _ = _train_state(cfg)
+    env = env or {}
+    arm = _arm_name(env)
+    with _environ(env):
+        eager, diffusion = _train_state(cfg)
+        captured, _ = _train_state(cfg)
+    ema_bytes = sum(t.numel() * t.element_size() for c in eager.ema.values() for t in c.values())
     inputs = [_flagship_step_inputs(cfg, B, seed=110 + i, K=K) for i in range(TRAIN_GRAPH_STEPS)]
 
     def args(x):
@@ -2251,7 +2501,7 @@ def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_co
     def eager_step(x):
         return train_step(eager, *args(x)[:3], diffusion=diffusion, noise=x["noise"])
 
-    program, diffs, counts = None, [], None
+    program, diffs, counts, fused_launches = None, [], None, []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for i, x in enumerate(inputs):
@@ -2274,6 +2524,7 @@ def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_co
                 got = program.run(*args(x))
             torch.cuda.synchronize()
             counts = read_counts()
+            fused_launches.append(adamw.fused_adamw_ema.launches)
             _check_launches(*counts, 1, per_forward, route_counts)
         diffs += [f"step {i}: {k}" for k in want if not torch.equal(got[k], want[k])]
         diffs += [f"step {i}: {n}" for n in _bitwise_diffs(_state_tensors(captured),
@@ -2288,6 +2539,7 @@ def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_co
     torch.cuda.synchronize()
     nan_changed = _bitwise_diffs(_state_tensors(captured), before)
     del before
+    update_ms, update_groups = _update_device_ms(eager)
 
     steps = {"eager": lambda: eager_step(inputs[0]),
              "captured": lambda: program.run(*args(inputs[0]))}
@@ -2313,10 +2565,16 @@ def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_co
             "device_busy_ms_per_step": busy, "idle_share": 1 - busy / wall if busy else None,
             "host_syncs_per_step": _host_syncs(prof, TRAIN_GRAPH_PROFILED),
             "kernels_seen_ms_per_step": {name: sum(ms for k, ms in per_kernel.items()
-                                                   if f"{name}_" in k) for name in KERNEL_NAMES},
+                                                   if f"{name}_" in k)
+                                         for name in KERNEL_NAMES + (ADAMW_NAME,)},
             "groups_ms_per_step": group_ms(per_kernel)}
-    row = {"phase": "train_graphs", "config": label, "B": B, "K": K,
+    FUSED_LAUNCHES[f"{label}_train_replay_{arm}"] = sum(fused_launches)
+    row = {"phase": "train_graphs", "config": label, "arm": arm, "env": env, "B": B, "K": K,
            "dtype": cfg["compute_dtype"], "steps_bitwise": TRAIN_GRAPH_STEPS,
+           "fused_launches_per_replay": fused_launches,
+           "kernel_launches_per_fused_call": adamw.fused_adamw_ema.launches_per_call,
+           "update_device_busy_ms": update_ms, "update_groups_ms": update_groups,
+           "ema_bytes": ema_bytes,
            "bitwise": not diffs, "diffs": diffs[:10],
            "nan_skipped": m_nan["skipped_nonfinite"].item(), "nan_state_unchanged": not nan_changed,
            "ms_per_step": times, "replay_back_to_back_ms": replay_back_to_back,
@@ -2328,7 +2586,11 @@ def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_co
            "card": card}
     emit(row)
     if diffs:
-        raise RuntimeError(f"train graphs {label}: captured and eager differ: {diffs[:10]}")
+        raise RuntimeError(f"train graphs {label} {arm}: captured and eager differ: "
+                           f"{diffs[:10]}")
+    if fused_launches != [1] * (TRAIN_GRAPH_STEPS - 1):
+        raise RuntimeError(f"train graphs {label} {arm}: fused_adamw_ema launches per replay "
+                           f"{fused_launches}, expected 1 each")
     if row["nan_skipped"] != 1.0 or nan_changed:
         raise RuntimeError(f"train graphs {label}: the replayed NaN step changed "
                            f"{nan_changed[:10]} (skipped {row['nan_skipped']})")
@@ -2339,6 +2601,67 @@ def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_co
     del program, eager, captured
     torch.cuda.empty_cache()
     return counts
+
+
+def _bf16_ema_vs_f32(cfg, card):
+    """The default state and each of ``EMA_ARMS`` from identical weights, 3
+    updates on one set of gradients (each step's, from the default state's
+    model, copied into the others): parameters, moments and count bitwise
+    the default's (the EMA's dtype feeds nothing back), each bf16 copy
+    within 2^-7 (two bf16 ulps) of the f32 one's value and of its tensor's
+    largest value (each step rounds the copy, and the copies of parameters
+    that start at 0 cancel)."""
+    import torch
+
+    from lfvdm_tpu_torch.training.train_loop import backward_microbatches, update_state
+
+    default, diffusion = _train_state(cfg)
+    states = {"default": default}
+    for arm, env in EMA_ARMS.items():
+        with _environ(env):
+            states[arm] = _train_state(cfg)[0]
+    for i in range(TRAIN_GRAPH_STEPS):
+        x = _flagship_step_inputs(cfg, FLAGSHIP_B, seed=110 + i)
+        default.model.train()
+        default.optimizer.zero_grad()
+        backward_microbatches(default.model, diffusion, {k: x[k] for k in BATCH_KEYS}, x["t"],
+                              x["w"], noise=x["noise"])
+        grads = [p.grad for _, p in default.named_params()]
+        for state in states.values():
+            for (_, p), g in zip(state.named_params(), grads):
+                p.grad = g.clone()
+            update_state(state)
+    torch.cuda.synchronize()
+    want = dict(_state_tensors(default))
+    row = {"phase": "train_update_arms", "config": "flagship", "steps": TRAIN_GRAPH_STEPS,
+           "nvidia_smi": card}
+    failures = []
+    for arm in EMA_ARMS:
+        worst, worst_name, differ = 0.0, None, []
+        for name, got in _state_tensors(states[arm]):
+            ref = want[name]
+            if not name.startswith("ema/"):
+                if not torch.equal(got, ref):
+                    differ.append(name)
+                continue
+            err = (got.float() - ref).abs()
+            scale = 2.0 ** -7 * (ref.abs() + ref.abs().max())
+            ratio = (err / scale.clamp(min=1e-30)).max().item()
+            if got.dtype != torch.bfloat16:
+                failures.append(f"{arm}: {name} is {got.dtype}")
+            if ratio > worst:
+                worst, worst_name = ratio, name
+        row[arm] = {"worst_ema_err_over_tolerance": worst, "at": worst_name,
+                    "not_bitwise": differ[:10]}
+        if differ:
+            failures.append(f"{arm}: {differ[:10]} differ from the default state's")
+        if not worst <= 1.0:
+            failures.append(f"{arm}: {worst_name} at {worst} of its tolerance")
+    emit(row)
+    del states, default, want
+    torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"bf16 EMA against the f32 one: {failures}")
 
 
 # ---------------------------------------------------------------------------
@@ -2423,9 +2746,14 @@ PARALLEL_DROPOUT = 0.1  # so that the rematerialised blocks' masks matter
 PARALLEL_STEPS = 2  # timed steps per loop, after one warm-up step
 PARALLEL_LR = 1e-4
 BATCH_KEYS = ("x0", "frame_indices", "obs_mask", "latent_mask")
-# Launches per train step with use_checkpoint: each block's forward runs
-# again in the backward pass.
+# Launches per train step with use_checkpoint under a policy that recomputes
+# the kernels: each block's forward runs again in the backward pass. The
+# policies of phase 7b a, those that recompute the kernels, and those whose
+# step is the plain one bit for bit (they keep F.group_norm).
 REMAT_PER_STEP = {name: 2 * n for name, n in PER_FORWARD.items()}
+REMAT_ARMS = ("nothing", "gn_stats", "dots", "everything")
+REMAT_RECOMPUTES_KERNELS = ("nothing", "gn_stats")
+REMAT_BITWISE = ("nothing", "everything")
 
 # One rank of phase 7b c: joins a gloo group of two on the one card, takes
 # one process's flagship step on both rows unwrapped (the reference, no
@@ -2573,82 +2901,127 @@ def phase_parallel(ckpt_root, card):
 
 
 def _parallel_remat(card):
-    """One train step with use_checkpoint and one without, the same weights,
-    batch, noise and dropout masks (p = 0.1): loss and gradients within
-    5e-3 in bf16 and 1e-5 in f32 (TF32 off); peak memory, ms per step and
-    launches per step (14 + 14 + 20 with remat) both ways."""
+    """One train step without use_checkpoint and one under each
+    ``REMAT_ARMS`` policy, the same weights, batch, noise and dropout masks
+    (p = 0.1), cuDNN's deterministic algorithms (so that equal work gives
+    equal bits): each arm's loss and gradients within 5e-3 in bf16 and 1e-5
+    in f32 (TF32 off), ``nothing`` and ``everything`` bitwise; peak memory,
+    ms per step and launches per step of each (14 + 14 + 20 where the
+    policy recomputes the kernels)."""
     import torch
 
     paths = {}
-    for dtype, band in (("bfloat16", 5e-3), ("float32", 1e-5)):
-        B = FLAGSHIP_B
-        while True:
-            try:
-                rows = _remat_rows(dtype, B, paths)
-                break
-            except torch.cuda.OutOfMemoryError:
-                if B == 1:
-                    raise
-                B = 1
-                torch.cuda.empty_cache()
-        plain, remat = rows
-        row = {"phase": "parallel_remat", "dtype": dtype, "B": B, "K": FLAGSHIP_K,
-               "dropout": PARALLEL_DROPOUT,
-               "loss_rel_err": abs(remat["loss"] - plain["loss"]) / abs(plain["loss"]),
-               "grad_rel_l2": _rel_l2_tensors(remat.pop("grads"), plain.pop("grads")),
-               "plain": plain, "remat": remat, "nvidia_smi": card}
-        emit(row)
-        if not (row["loss_rel_err"] <= band and row["grad_rel_l2"] <= band):
-            raise RuntimeError(f"remat step ({dtype}) differs from the plain one beyond {band}: "
-                               f"loss {row['loss_rel_err']}, gradients {row['grad_rel_l2']}")
-        if dtype == "bfloat16" and not remat["peak_mem_gib"] < plain["peak_mem_gib"]:
-            raise RuntimeError("remat did not lower the step's peak memory")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype, band in (("bfloat16", 5e-3), ("float32", 1e-5)):
+            B = FLAGSHIP_B
+            while True:
+                try:
+                    rows = _remat_rows(dtype, B, paths)
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    if B == 1:
+                        raise
+                    B = 1
+                    torch.cuda.empty_cache()
+            plain = rows.pop(None)
+            plain_grads = plain.pop("grads")
+            arms = {}
+            for arm, r in rows.items():
+                grads = r.pop("grads")
+                loss_err = abs(r["loss"] - plain["loss"]) / abs(plain["loss"])
+                arms[arm] = dict(r, loss_rel_err=loss_err,
+                                 grad_rel_l2=_rel_l2_tensors(grads, plain_grads),
+                                 bitwise=r["loss"] == plain["loss"]
+                                 and torch.equal(grads, plain_grads))
+                del grads
+            row = {"phase": "parallel_remat", "dtype": dtype, "B": B, "K": FLAGSHIP_K,
+                   "dropout": PARALLEL_DROPOUT, "cudnn_deterministic": True, "plain": plain,
+                   "arms": arms, "nvidia_smi": card}
+            emit(row)
+            del plain_grads
+            for arm, r in arms.items():
+                if not (r["loss_rel_err"] <= band and r["grad_rel_l2"] <= band):
+                    raise RuntimeError(f"remat step ({dtype}, {arm}) differs from the plain one "
+                                       f"beyond {band}: loss {r['loss_rel_err']}, gradients "
+                                       f"{r['grad_rel_l2']}")
+                if arm in REMAT_BITWISE and not r["bitwise"]:
+                    raise RuntimeError(f"remat step ({dtype}, {arm}) is not the plain one "
+                                       f"bitwise: loss {r['loss_rel_err']}, gradients "
+                                       f"{r['grad_rel_l2']}")
+            if dtype == "bfloat16" and not all(arms[arm]["peak_mem_gib"] < plain["peak_mem_gib"]
+                                               for arm in REMAT_RECOMPUTES_KERNELS):
+                raise RuntimeError("remat under nothing or gn_stats did not lower the step's "
+                                   "peak memory")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     return paths
 
 
 def _remat_rows(dtype, B, paths):
+    """{arm: row}: the plain step (arm None) and each REMAT_ARMS policy, on
+    one model whose blocks' ``use_checkpoint`` each arm sets: peak memory
+    with the model, its gradients and the batch resident, ms per step
+    (eager: the host's selective-checkpoint dispatch included) and, in
+    bf16, one more step's device busy time from the profiler."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
+    from lfvdm_tpu_torch.models.unet import FactorizedAttentionBlock, ResBlock
     from lfvdm_tpu_torch.models.unet import set_dropout_generator
     from lfvdm_tpu_torch.ops import attention as ops
     from lfvdm_tpu_torch.training.train_loop import backward_microbatches
 
-    rows = []
-    for remat in (False, True):
-        cfg, model, diffusion = _seeded_flagship(compute_dtype=dtype, dropout=PARALLEL_DROPOUT,
-                                                 use_checkpoint=remat)
-        x = _flagship_step_inputs(cfg, B, seed=70)
-        batch = {k: x[k] for k in BATCH_KEYS}
-        gen = torch.Generator(device="cuda")
-        set_dropout_generator(model, gen)
-        model.train()
+    cfg, model, diffusion = _seeded_flagship(compute_dtype=dtype, dropout=PARALLEL_DROPOUT)
+    blocks = [m for m in model.modules() if isinstance(m, (ResBlock, FactorizedAttentionBlock))]
+    x = _flagship_step_inputs(cfg, B, seed=70)
+    batch = {k: x[k] for k in BATCH_KEYS}
+    gen = torch.Generator(device="cuda")
+    set_dropout_generator(model, gen)
+    model.train()
 
-        def step():
-            gen.manual_seed(71)
-            model.zero_grad(set_to_none=True)
-            return backward_microbatches(model, diffusion, batch, x["t"], x["w"],
-                                         noise=x["noise"])[0]
+    def step():
+        gen.manual_seed(71)
+        model.zero_grad(set_to_none=True)
+        return backward_microbatches(model, diffusion, batch, x["t"], x["w"],
+                                     noise=x["noise"])[0]
 
-        step()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        for _ in range(PARALLEL_STEPS):
-            loss = step()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / PARALLEL_STEPS * 1e3
-        launches, routes = read_counts()
+    rows = {}
+    for arm in (None,) + REMAT_ARMS:
+        for block in blocks:
+            block.use_checkpoint = arm is not None
+        with _environ({"LFVDM_REMAT_POLICY": arm or "gn_stats"}):
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(PARALLEL_STEPS):
+                loss = step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / PARALLEL_STEPS * 1e3
+            launches, routes = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            busy = None
+            if dtype == "bfloat16":
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    step()
+                    torch.cuda.synchronize()
+                busy = sum(device_kernels_ms(prof, 1).values())
         if dtype == "bfloat16":
-            _check_launches(launches, routes, PARALLEL_STEPS,
-                            per_forward=REMAT_PER_STEP if remat else PER_FORWARD)
-            paths["parallel_remat" if remat else "parallel_no_remat"] = (launches, routes)
-        rows.append({"use_checkpoint": remat, "loss": loss.item(), "ms_per_step": ms,
-                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            per_step = REMAT_PER_STEP if arm in REMAT_RECOMPUTES_KERNELS else PER_FORWARD
+            _check_launches(launches, routes, PARALLEL_STEPS, per_forward=per_step)
+            paths[f"parallel_remat_{arm}" if arm else "parallel_no_remat"] = (launches, routes)
+        rows[arm] = {"use_checkpoint": arm is not None, "policy": arm, "loss": loss.item(),
+                     "ms_per_step": ms, "device_busy_ms_per_step": busy,
+                     "peak_mem_gib": peak / 2**30,
                      "launches_per_step": {k: v / PARALLEL_STEPS for k, v in launches.items()},
-                     "grads": torch.cat([p.grad.flatten().float() for p in model.parameters()])})
-        del model
-        torch.cuda.empty_cache()
+                     # on the host, so that no arm's peak holds another's
+                     "grads": torch.cat([p.grad.flatten().float()
+                                         for p in model.parameters()]).cpu()}
+    del model
+    torch.cuda.empty_cache()
     return rows
 
 

@@ -5,7 +5,10 @@
 * ``GroupNorm32`` computes its statistics and the normalisation in f32 and
   casts back (or emits f32 for the output head). Given per-channel sums
   (``channel_sums``, or the skip projection's kernel), it forms the group
-  statistics from them instead of reading its input again.
+  statistics from them instead of reading its input again. Inside
+  ``saved_group_stats()`` (a rematerialised block whose remat policy saves
+  them, ``models/unet.py`` ``remat_policy``) it takes its (N, G) statistics
+  from an op that returns them alone, so that the policy can keep them.
 * Initialisation is torch's default (uniform ±1/√fan_in for weights and
   biases), drawn from an explicit ``torch.Generator`` by ``init_parameters``;
   "zero modules" start at zero. Construction itself draws nothing.
@@ -13,7 +16,9 @@
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -34,6 +39,28 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10
     return embedding
 
 
+_STATS = threading.local()  # .saved: inside saved_group_stats() on this thread
+
+
+@contextlib.contextmanager
+def saved_group_stats():
+    """Inside, on this thread, ``GroupNorm32`` without ``precomputed_sums``
+    computes its group statistics with ``torch.var_mean`` (an op whose
+    outputs are the f32 (N, G) variance and mean alone) and applies the
+    affine folded into them, as ``lfvdm_tpu/models/nn.py`` ``GroupNorm32``
+    does under its ``gn_stats`` checkpoint names. ``F.group_norm`` returns
+    its statistics fused with the whole activation, so a remat policy could
+    not save them without saving the activation. ``models/unet.py`` runs a
+    rematerialised block's forward and recompute inside this under the
+    ``gn_stats`` and ``dots`` policies."""
+    before = getattr(_STATS, "saved", False)
+    _STATS.saved = True
+    try:
+        yield
+    finally:
+        _STATS.saved = before
+
+
 class GroupNorm32(nn.GroupNorm):
     """GroupNorm over (N, C, *) with f32 statistics.
 
@@ -52,17 +79,27 @@ class GroupNorm32(nn.GroupNorm):
         each (N, C), taken where x's parts were produced. The group variance
         is then the unanchored E[x²] − E[x]² (lfvdm_tpu ``GroupNorm32``), and
         gradients flow through the sums."""
-        if precomputed_sums is None:
-            y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
-            return y.to(self.out_dtype or x.dtype)
         N, C = x.shape[:2]
         G = self.num_groups
+        if precomputed_sums is None:
+            if not getattr(_STATS, "saved", False):
+                y = F.group_norm(x.float(), G, self.weight, self.bias, self.eps)
+                return y.to(self.out_dtype or x.dtype)
+            g_var, g_mean = torch.var_mean(x.float().reshape(N, G, -1), dim=2, keepdim=True,
+                                           correction=0)  # (N, G, 1) each
+            return self._affine(x, g_mean, g_var)
         n_red = x[0, 0].numel() * (C // G)
         s1, s2 = precomputed_sums
         g_mean = s1.reshape(N, G, C // G).sum(-1, keepdim=True) / n_red  # (N, G, 1)
         g_var = (s2.reshape(N, G, C // G).sum(-1, keepdim=True) / n_red
                  - g_mean.square()).clamp(min=0.0)
-        # per-channel affine y = x·mul + add, broadcast from the groups
+        return self._affine(x, g_mean, g_var)
+
+    def _affine(self, x, g_mean, g_var):
+        """x normalised by its (N, G, 1) group statistics and scaled: the
+        per-channel affine y = x·mul + add, broadcast from the groups."""
+        N, C = x.shape[:2]
+        G = self.num_groups
         mul = torch.rsqrt(g_var + self.eps) * self.weight.reshape(G, C // G)
         add = self.bias.reshape(G, C // G) - g_mean * mul
         bshape = (N, C) + (1,) * (x.ndim - 2)

@@ -20,24 +20,27 @@ the concat again, and with ``fused_skip_conv`` (the default) its 1x1 skip
 projection, residual add and the output's channel sums run as one CUDA
 kernel (``ops.skipconv.skip_conv_stats``) that reads h and the skip tensor in
 place; the next ResBlock takes those sums when nothing came between. The
-JAX package's other TPU-only rewrites (split up path, dilated upsample conv,
-remat policies) are not ported: this module runs the plain forms they equal
-(concat + conv, nearest + conv).
+JAX package's other TPU-only rewrites (split up path, dilated upsample conv)
+are not ported: this module runs the plain forms they equal (concat + conv,
+nearest + conv).
 
 ``use_checkpoint`` is the counterpart of JAX's ``nn.remat`` of each ResBlock
-and FactorizedAttentionBlock: in training each such block keeps only its
-inputs and runs its forward again in the backward pass
-(``torch.utils.checkpoint``, non-reentrant), so its kernels launch twice per
-step. The recompute draws the same dropout masks as the forward, as JAX's
-remat replays the same key (``_remat``); a block whose dropout draws
-nothing keeps no RNG state. Inside a captured train step the recompute
-draws from a graph-safe copy of the generator's state instead
-(``RematDropoutStreams``).
+and FactorizedAttentionBlock under its policy ladder (``remat_policy``,
+``LFVDM_REMAT_POLICY``): in training each such block keeps its inputs and
+what the policy saves, and runs its forward again in the backward pass
+(``torch.utils.checkpoint``, non-reentrant, with a selective-checkpoint
+``context_fn``); what the policy saved is not computed again, and under
+``everything`` (which saves all) the block simply runs. The recompute
+draws the same dropout masks as the forward, as JAX's remat replays the
+same key (``_remat``); a block whose dropout draws nothing keeps no RNG
+state. Inside a captured train step the recompute draws from a graph-safe
+copy of the generator's state instead (``RematDropoutStreams``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from typing import Sequence, Tuple
 
@@ -47,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.skipconv import skip_conv_stats
-from .nn import Conv2d, GroupNorm32, Linear, channel_sums, timestep_embedding
+from .nn import Conv2d, GroupNorm32, Linear, channel_sums, saved_group_stats, timestep_embedding
 from .rpe import RPEAttention
 
 
@@ -86,8 +89,74 @@ def set_dropout_generator(model: nn.Module, generator) -> None:
             m.generator = generator
 
 
+REMAT_POLICIES = ("gn_stats", "nothing", "dots", "everything")
+_aten = torch.ops.aten
+# The products JAX's ``dots_saveable`` saves (dot_general): matrix products
+# as the dispatcher sees them below autograd. Convolutions are not among
+# them, as ``conv_general_dilated`` is not among JAX's.
+_DOT_OPS = (_aten.mm, _aten.bmm, _aten.addmm, _aten.baddbmm, _aten.linear)
+
+
+def remat_policy() -> str:
+    """The remat policy of ``use_checkpoint``'s blocks (``LFVDM_REMAT_POLICY``,
+    the ladder of ``lfvdm_tpu/models/unet.py`` ``remat_policy``), read each
+    time a rematerialised block runs (a captured step keeps the one it was
+    captured with). What each saves across the block's boundary:
+
+      * ``gn_stats`` (default): the GroupNorm group statistics, an f32
+        (N, G) pair per norm (``torch.var_mean`` inside
+        ``nn.saved_group_stats``): the recompute does not reduce the
+        activation again.
+      * ``nothing``: nothing; the whole block runs again.
+      * ``dots``: ``gn_stats`` and every product: mm, bmm, addmm, baddbmm,
+        linear, and the outputs of the ``lfvdm`` operators (the attention
+        kernels and the skip projection, which stand where JAX has
+        dot_generals). Convolutions are recomputed.
+      * ``everything``: every output, which is no remat: the block runs as
+        it would without ``use_checkpoint`` (JAX's ``everything_saveable``
+        recomputes nothing either), so the step is the plain one.
+
+    On the H100 ``nothing`` is the arm to pick when memory forces remat:
+    ``gn_stats`` and ``dots`` cost it more device time and more peak
+    memory at the flagship (``PERF.md``); ``gn_stats`` stays the default as
+    in JAX."""
+    name = os.environ.get("LFVDM_REMAT_POLICY", "gn_stats")
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"LFVDM_REMAT_POLICY must be one of {REMAT_POLICIES}, got {name!r}")
+    return name
+
+
+def _saves(policy: str, ctx, func, *args, **kwargs):
+    """The selective-checkpoint decision for one operator under ``policy``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    packet = func.overloadpacket
+    save = packet is _aten.var_mean or (
+        policy == "dots" and (packet in _DOT_OPS or func.namespace == "lfvdm"))
+    return CheckpointPolicy.MUST_SAVE if save else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``policy``."""
+    if policy == "nothing":
+        return torch.utils.checkpoint.noop_context_fn
+    return functools.partial(torch.utils.checkpoint.create_selective_checkpoint_contexts,
+                             functools.partial(_saves, policy))
+
+
+def _with_saved_group_stats(fn):
+    def run(*args, **kwargs):
+        with saved_group_stats():
+            return fn(*args, **kwargs)
+
+    return run
+
+
 def _remat(fn, draws: bool, generator, streams, *args, **kwargs):
-    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint``. Where ``fn``
+    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint`` with the
+    ``remat_policy()``'s selective-checkpoint contexts (under ``gn_stats``
+    and ``dots`` its forward and recompute run inside
+    ``saved_group_stats()``); under ``everything`` plainly. Where ``fn``
     ``draws`` random numbers, its recompute draws the same ones as the
     forward did: from ``generator`` (``checkpoint`` restores the global RNGs
     itself, not an explicit generator's), which the recompute puts back
@@ -98,11 +167,17 @@ def _remat(fn, draws: bool, generator, streams, *args, **kwargs):
     instead. Where ``fn`` draws none, no RNG state is read or set, on the
     host or the device: the block's forward and recompute then go into a
     CUDA graph as they are."""
-    checkpoint = torch.utils.checkpoint.checkpoint
+    policy = remat_policy()
+    if policy == "everything":
+        return fn(*args, **kwargs)
+    if policy in ("gn_stats", "dots"):
+        fn = _with_saved_group_stats(fn)
+    checkpoint = functools.partial(torch.utils.checkpoint.checkpoint, use_reentrant=False,
+                                   context_fn=_remat_context(policy))
     if not draws:
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+        return checkpoint(fn, *args, preserve_rng_state=False, **kwargs)
     if generator is None:
-        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(fn, *args, **kwargs)
     capturing = streams is not None and torch.cuda.is_current_stream_capturing()
     if capturing:
         copy = streams.take(generator)
@@ -127,8 +202,7 @@ def _remat(fn, draws: bool, generator, streams, *args, **kwargs):
         finally:
             (generator.graphsafe_set_state if capturing else generator.set_state)(resume)
 
-    return checkpoint(replay, *args, use_reentrant=False, preserve_rng_state=not capturing,
-                      **kwargs)
+    return checkpoint(replay, *args, preserve_rng_state=not capturing, **kwargs)
 
 
 class RematDropoutStreams:

@@ -1,5 +1,6 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), with their plain versions."""
 
+from .adamw import fused_adamw_ema, fused_adamw_ema_plain  # noqa: F401
 from .attention import (  # noqa: F401
     launch_counts,
     reset_launch_counts,

@@ -123,14 +123,25 @@ def define(name: str, schema: str, *, cpu, cuda, fake, backward, setup_context):
     """Define operator ``lfvdm::<name><schema>`` with its implementations;
     returns its overload (``torch.ops.lfvdm.<name>.default``).
     ``setup_context(ctx, inputs, output)`` saves what ``backward(ctx,
-    *grads)`` needs, as ``torch.library.register_autograd`` takes them."""
+    *grads)`` needs, as ``torch.library.register_autograd`` takes them;
+    ``backward=None`` is an operator with no gradient (an optimizer step),
+    whose Autograd kernel runs it below autograd and records nothing."""
     LIB.define(name + schema)
     LIB.impl(name, cpu, "CPU")
     LIB.impl(name, cuda, "CUDA")
     torch.library.register_fake(f"lfvdm::{name}", fake, lib=LIB)
     op = getattr(torch.ops.lfvdm, name).default
-    LIB.impl(name, _autograd_kernel(op, backward, setup_context), "Autograd")
+    LIB.impl(name, _below_autograd(op) if backward is None
+             else _autograd_kernel(op, backward, setup_context), "Autograd")
     return op
+
+
+def _below_autograd(op):
+    def kernel(*args):
+        with torch._C._AutoDispatchBelowAutograd():
+            return op(*args)
+
+    return kernel
 
 
 def _autograd_kernel(op, backward_fn, setup_context):

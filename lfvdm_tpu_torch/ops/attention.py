@@ -236,7 +236,8 @@ counted(temporal_rpe_attention)
 
 
 def launch_counts() -> dict:
-    """The launch counter of every kernel of the port, by kernel name."""
+    """The launch counter of every kernel of the U-Net forward, by kernel
+    name (the optimizer's ``adamw.fused_adamw_ema`` counts its own)."""
     return {"temporal_rpe_attention": temporal_rpe_attention.launches,
             "spatial_attention": spatial_attention.launches,
             "skip_conv_stats": skip_conv_stats.launches}

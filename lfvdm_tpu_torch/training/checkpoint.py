@@ -11,7 +11,9 @@ Layout (``torch.save``, loaded with ``weights_only=True``):
   <dir>/<step>/ema_<rate>.pt        one file per EMA rate
   <dir>/<step>/train_state.pt       Adam moments, counts and step
 
-so that an eval loads one weight copy without reading the rest. In a
+so that an eval loads one weight copy without reading the rest. Each EMA
+copy is written and read at its stored dtype (bf16 under
+``LFVDM_BF16_EMA``, else f32). In a
 ``torch.distributed`` group rank 0 writes (the state holds full tensors, the
 same on every rank) and every rank waits at a barrier; each rank reads the
 files itself on resume, so a run saved by N ranks resumes under any other.
@@ -123,7 +125,8 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None):
 def load_ema_params(ckpt_dir: str, step: Optional[int] = None, rate: Optional[str] = None):
     """Restore ONE weight copy: the EMA at ``rate`` (default: the largest
     rate saved), or the raw parameters when ``rate="raw"`` or no EMA was
-    saved. Returns (params, picked rate or None, step, config)."""
+    saved, as f32 tensors, the parameters' dtype (a bf16 EMA copy is
+    widened). Returns (params, picked rate or None, step, config)."""
     ckpt_dir, step, path = _step_dir(ckpt_dir, step)
     rates = sorted(f[len("ema_"):-len(".pt")] for f in os.listdir(path)
                    if f.startswith("ema_") and f.endswith(".pt"))
@@ -131,7 +134,7 @@ def load_ema_params(ckpt_dir: str, step: Optional[int] = None, rate: Optional[st
         picked = str(rate) if rate is not None else rates[-1]
         if picked not in rates:
             raise ValueError(f"EMA rate {picked} not in checkpoint ({rates})")
-        params = _load(os.path.join(path, f"ema_{picked}.pt"))
+        params = {k: v.float() for k, v in _load(os.path.join(path, f"ema_{picked}.pt")).items()}
         # EMA(r) after N steps still weights the step-0 random init by r^N.
         init_frac = float(picked) ** max(step, 0)
         if init_frac > 0.05:

@@ -27,9 +27,16 @@ parallelism (``parallel/sharding.py``: DDP, or FSDP2 with ``fsdp`` > 1).
 The gradient norm is then the global one, so every rank takes the same
 skip decision; the update runs on each rank's local tensors (FSDP2's
 shards); each rank's EMA follows its own parameters (under FSDP its
-shards); checkpoints and ``ema_params`` gather the full tensors. Not
-ported: the JAX package's fused-optimizer and bf16-EMA diagnostics, which
-measured TPU memory.
+shards); checkpoints and ``ema_params`` gather the full tensors.
+
+The update is one pass over every local tensor
+(``ops.adamw.fused_adamw_ema``: AdamW, every EMA copy and the skip in one
+CUDA kernel on the card), the counterpart of the JAX package's
+``LFVDM_FUSED_OPT=1`` arm, which computes what its default optax chain
+does; the port has no other update, so it does not read that switch.
+``LFVDM_BF16_EMA=1``, read when the state is built (``init_train_state``),
+stores the EMA copies in bfloat16 (f32 arithmetic, rounded to the copy);
+off by default, as in JAX.
 
 The host loop keeps the JAX package's cadence: mask sampling on a numpy
 generator, timestep importance sampling with loss-aware updates, log, save
@@ -48,7 +55,7 @@ import copy
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -57,6 +64,7 @@ from torch import nn
 from ..diffusion.gaussian import GaussianDiffusion, _randn
 from ..diffusion.resample import LossAwareSampler, ScheduleSampler, UniformSampler
 from ..models.unet import set_dropout_generator
+from ..ops.adamw import fused_adamw_ema
 from ..parallel import sharding
 from ..parallel.mesh import best_mesh_shape, make_mesh
 from ..utils.device import any_rank, process_index_and_count
@@ -68,8 +76,9 @@ METRIC_TERMS = ("mse", "vb", "eval-mse")
 
 
 class AdamW:
-    """``optax.adamw``'s update (b1 0.9, b2 0.999, eps 1e-8, weight decay
-    added to the normalised update). Its moments (``state[p]``:
+    """``optax.adamw``'s hyperparameters (b1 0.9, b2 0.999, eps 1e-8, weight
+    decay added to the normalised update) and state, which ``update_state``
+    advances (``ops.adamw.fused_adamw_ema``). Its moments (``state[p]``:
     ``exp_avg``, ``exp_avg_sq``) are made zero at construction, laid out as
     the parameters; ``count``, the updates made, is a 0-d int64 tensor on
     the parameters' device."""
@@ -87,31 +96,6 @@ class AdamW:
     def zero_grad(self):
         for p in self.params:
             p.grad = None
-
-    def new_params(self, params: torch.Tensor, grads: torch.Tensor, lr,
-                   finite: torch.Tensor) -> torch.Tensor:
-        """One update of the flat local parameters ``params`` (``flat`` of
-        ``self.params``' local tensors, in order) from the flat ``grads`` at
-        learning rate ``lr`` (a number or a 0-d tensor). The moments and
-        the count take their new values where ``finite``, in place; the new
-        flat parameters are returned, not yet selected."""
-        b1, b2 = self.betas
-        m = [sharding.local(self.state[p]["exp_avg"]) for p in self.params]
-        v = [sharding.local(self.state[p]["exp_avg_sq"]) for p in self.params]
-        m_old, v_old = flat(m), flat(v)
-        count = self.count + 1
-        c1, c2 = 1.0 - torch.pow(b1, count), 1.0 - torch.pow(b2, count)
-        m_new = (grads * (1.0 - b1)).add_(m_old, alpha=b1)
-        v_new = (grads * grads).mul_(1.0 - b2).add_(v_old, alpha=b2)
-        update = (m_new / c1).div_((v_new / c2).sqrt_().add_(self.eps))
-        if self.weight_decay:
-            update.add_(params, alpha=self.weight_decay)
-        new = params + update.mul_(-lr)
-        del update
-        select(m, m_new, m_old, finite)
-        select(v, v_new, v_old, finite)
-        self.count.add_(finite)
-        return new
 
 
 class LinearAnneal:
@@ -138,8 +122,9 @@ def make_optimizer(params, lr: float, weight_decay: float, lr_anneal_steps: int 
 @dataclasses.dataclass
 class TrainState:
     """The model (as the step runs it: plain, DDP or FSDP2), its optimizer and
-    LR schedule, one f32 EMA copy per rate ({param name: tensor}, laid out
-    as the parameter) and the number of steps taken (skipped included)."""
+    LR schedule, one EMA copy per rate ({param name: tensor}, laid out as
+    the parameter, f32 or bf16) and the number of steps taken (skipped
+    included)."""
 
     model: nn.Module
     optimizer: AdamW
@@ -194,9 +179,17 @@ class TrainState:
 
 
 def init_train_state(model: nn.Module, optimizer, scheduler, ema_rates) -> TrainState:
-    """Fresh state: one f32 EMA copy of the parameters per rate, step 0."""
+    """Fresh state: one EMA copy of the parameters per rate, step 0.
+
+    The copies are f32, or bfloat16 when ``LFVDM_BF16_EMA`` is "1" (the JAX
+    package's diagnostic, which halves the EMA's bytes in the update; NOT
+    for production: checkpoints then carry bf16 EMAs, about 3 decimal
+    digits, and the reference's eval protocol scores EMA weights). Read
+    here, once."""
     named = list(sharding.unwrap(model).named_parameters())
-    ema = {str(float(r)): {n: p.detach().float().clone() for n, p in named} for r in ema_rates}
+    ema_dtype = torch.bfloat16 if os.environ.get("LFVDM_BF16_EMA", "0") == "1" else torch.float32
+    ema = {str(float(r)): {n: p.detach().to(ema_dtype).clone() for n, p in named}
+           for r in ema_rates}
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler, ema=ema)
 
 
@@ -263,32 +256,16 @@ def backward_microbatches(model, diffusion: GaussianDiffusion, batch: Dict[str, 
     return loss, {k: torch.cat([c[k] for c in chunk_terms]) for k in chunk_terms[0]}
 
 
-def flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The tensors' elements in one 1-D tensor, in order (a copy)."""
-    return torch.cat([t.reshape(-1) for t in tensors])
-
-
-def select(tensors: Sequence[torch.Tensor], new: torch.Tensor, old: torch.Tensor,
-           finite: torch.Tensor):
-    """Write into ``tensors`` the flat ``new`` where ``finite`` (a 0-d bool
-    tensor on their device) is true and the flat ``old`` (their own values)
-    where it is not: JAX's ``jnp.where(finite, new, old)``, bitwise, as one
-    elementwise select and one multi-tensor copy."""
-    chosen = torch.where(finite, new, old, out=new)
-    parts = chosen.split([t.numel() for t in tensors])
-    torch._foreach_copy_(list(tensors), [part.view_as(t) for part, t in zip(parts, tensors)])
-
-
 @torch.no_grad()
 def update_state(state: TrainState):
     """The update from the accumulated ``.grad``, decided on the device:
     AdamW, the schedule's count and every EMA take their new values where
     the global gradient norm is finite, and keep their old ones, bitwise,
-    where it is not. The arithmetic runs on flat copies of each rank's
-    local tensors (a few dozen launches whatever the parameter count). Reads
-    nothing back to the host, and leaves the gradients and ``state.step``
-    alone. Returns (the gradient norm over every rank, whether it is
-    finite), 0-d tensors on the device."""
+    where it is not. One pass over each rank's local tensors
+    (``fused_adamw_ema``); each EMA copy is e·r + p·(1 − r) in f32, stored
+    at the copy's dtype. Reads nothing back to the host, and leaves the
+    gradients and ``state.step`` alone. Returns (the gradient norm over
+    every rank, whether it is finite), 0-d tensors on the device."""
     named = state.named_params()
     for _, p in named:
         if p.grad is None:  # an unused parameter: a zero gradient, as in JAX
@@ -297,18 +274,18 @@ def update_state(state: TrainState):
     grad_norm = sharding.global_grad_norm([p.grad for _, p in named])
     finite = torch.isfinite(grad_norm)
     opt, schedule = state.optimizer, state.scheduler
-    lr = opt.lr if schedule is None else opt.lr * schedule.factor()
-    params = [sharding.local(p) for _, p in named]
-    old = flat(params)
-    new = opt.new_params(old, flat([sharding.local(p.grad) for _, p in named]), lr, finite)
+    local = sharding.local
+    moments = [opt.state[p] for _, p in named]
+    fused_adamw_ema(
+        [local(p) for _, p in named], [local(p.grad) for _, p in named],
+        [local(m["exp_avg"]) for m in moments], [local(m["exp_avg_sq"]) for m in moments],
+        [[local(ema[n]) for n, _ in named] for ema in state.ema.values()], finite,
+        opt.count, lr=opt.lr, weight_decay=opt.weight_decay,
+        rates=[float(r) for r in state.ema], betas=opt.betas, eps=opt.eps,
+        lr_factor=None if schedule is None else schedule.factor())
+    opt.count.add_(finite)
     if schedule is not None:
         schedule.count.add_(finite)
-    for rate, ema in state.ema.items():
-        r = float(rate)
-        copies = [sharding.local(ema[n]) for n, _ in named]
-        e = flat(copies)
-        select(copies, (e * r).add_(new, alpha=1.0 - r), e, finite)  # e·r + p·(1 − r), in f32
-    select(params, new, old, finite)
     return grad_norm.detach(), finite
 
 

@@ -8,6 +8,7 @@ key the line's readers take, and the script refuses to run without a card.
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -39,6 +40,15 @@ def _row(name, ds, dtype="bfloat16", **extra):
     return row
 
 
+def _adamw_rows(results):
+    """Phase 3's two rows of the optimizer kernel (f32 and bf16 EMA)."""
+    for ema in ("float32", "bfloat16"):
+        results[(chip_smoke.ADAMW_NAME, ema)] = _row(
+            chip_smoke.ADAMW_NAME, None, ema_dtype=ema, bound_by="bytes", tensors=432,
+            elements=80358147, kernel_launches_per_call=10, library="torch._fused_adamw_")
+    return results
+
+
 def test_kernels_line_has_every_key():
     results = {}
     for ds in chip_smoke.ATTN_SHAPES:
@@ -56,6 +66,7 @@ def test_kernels_line_has_every_key():
     for shp in chip_smoke.LATENT_SKIP_SHAPES:
         results[("latent", "skip_conv_stats") + shp + ("bfloat16",)] = _row(
             "skip_conv_stats", shp[0], route="bulk", ms=0.003)
+    _adamw_rows(results)
     launches = {n: 7 * 6 for n in chip_smoke.KERNEL_NAMES}
     routes = {"spatial_attention": {"mma": 42, "fma": 0},
               "skip_conv_stats": {"generic": 0, "bulk": 42}}
@@ -67,9 +78,13 @@ def test_kernels_line_has_every_key():
         {"train": routes, "sample_video": routes, "latent_sample": latent_routes})
     json.dumps(line)
     entries = {e["name"]: e for e in line["kernels"]}
-    assert set(entries) == set(chip_smoke.KERNEL_NAMES)
+    assert set(entries) == set(chip_smoke.KERNEL_NAMES) | {chip_smoke.ADAMW_NAME}
     for e in entries.values():
         assert CONTRACT_KEYS <= set(e) and e["route"] == "cuda"
+    # the optimizer kernel: its launches are the replays of phase 6b
+    adamw = entries[chip_smoke.ADAMW_NAME]
+    assert adamw["launches"] == sum(chip_smoke.FUSED_LAUNCHES.values())
+    assert adamw["source"] == chip_smoke.ADAMW_SOURCE and "bf16_ema" in adamw
     spatial = entries["spatial_attention"]
     assert spatial["launches_by_route"]["train"] == routes["spatial_attention"]
     skip = entries["skip_conv_stats"]
@@ -289,10 +304,11 @@ def test_cli_paths_in_the_kernels_line():
     for shp in chip_smoke.LATENT_SKIP_SHAPES:
         results[("latent", "skip_conv_stats") + shp + ("bfloat16",)] = _row("skip_conv_stats",
                                                                             shp[0])
+    _adamw_rows(results)
     paths = ("train", "sample_video", "cli_sample", "cli_train", "cli_vis", "cli_run_dir_sample")
     line = chip_smoke.kernels_line(results, {p: counts for p in paths},
                                    {p: routes for p in paths})
-    for e in line["kernels"]:
+    for e in line["kernels"][:len(chip_smoke.KERNEL_NAMES)]:  # the optimizer's comes last
         assert set(e["launches_by_path"]) == set(paths)
         assert e["launches_by_path"]["cli_sample"] == counts[e["name"]]
 
@@ -356,10 +372,12 @@ def test_serve_paths_in_the_kernels_line():
     for shp in chip_smoke.LATENT_SKIP_SHAPES:
         results[("latent", "skip_conv_stats") + shp + ("bfloat16",)] = _row("skip_conv_stats",
                                                                             shp[0])
+    _adamw_rows(results)
     paths = {"train": per_path["serve"], **per_path}
     line = chip_smoke.kernels_line(results, {p: c for p, (c, _) in paths.items()},
                                    {p: r for p, (_, r) in paths.items()})
-    for e in line["kernels"]:
+    assert line["kernels"][-1]["name"] == chip_smoke.ADAMW_NAME
+    for e in line["kernels"][:-1]:  # the U-Net's kernels, on the serving paths
         assert CONTRACT_KEYS <= set(e)
         assert e["launches_by_path"]["serve"] == 25 * chip_smoke.PER_FORWARD[e["name"]]
         assert e["launches_by_path"]["serve_ancestral"] == 50 * chip_smoke.PER_FORWARD[e["name"]]
@@ -410,3 +428,23 @@ def test_lpips_stand_in_is_the_lpips_distance(tmp_path, monkeypatch):
         x, y = (torch.rand((3, 3, 64, 64), generator=torch.Generator().manual_seed(s)) * 2 - 1
                 for s in (1, 2))
         torch.testing.assert_close(stand_in(x, y), ref(x, y), rtol=1e-5, atol=1e-7)
+
+
+def test_update_and_remat_arms_set_and_restore_their_variables(monkeypatch):
+    """Phase 6b's update arms and phase 7b a's remat arms run under
+    ``_environ``: the switches hold inside and the variables are as they
+    were after (unset ones unset), also when the body raises."""
+    monkeypatch.setenv("LFVDM_REMAT_POLICY", "nothing")
+    monkeypatch.delenv("LFVDM_BF16_EMA", raising=False)
+    env = dict(chip_smoke.EMA_ARMS["bf16_ema"], LFVDM_REMAT_POLICY="dots")
+    with pytest.raises(KeyError):
+        with chip_smoke._environ(env):
+            assert {k: os.environ[k] for k in env} == env
+            raise KeyError("inside")
+    assert os.environ["LFVDM_REMAT_POLICY"] == "nothing"
+    assert "LFVDM_BF16_EMA" not in os.environ
+    assert chip_smoke._arm_name(chip_smoke.EMA_ARMS["bf16_ema"]) == "bf16_ema"
+    assert chip_smoke._arm_name({}) == "default"
+    assert set(chip_smoke.REMAT_ARMS) == {"gn_stats", "nothing", "dots", "everything"}
+    assert set(chip_smoke.REMAT_BITWISE) | set(chip_smoke.REMAT_RECOMPUTES_KERNELS) <= set(
+        chip_smoke.REMAT_ARMS)

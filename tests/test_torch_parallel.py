@@ -8,7 +8,9 @@ sampling over several devices of one process (CPU, f32, one torch thread).
   U-Net's parameter shapes: the same axis, or replicated, for every
   parameter (JAX reads only the shapes; nothing is compiled).
 - ``use_checkpoint=True`` with dropout 0.1: loss, gradients and the dropout
-  generator's state bitwise equal to the step without it (the recompute
+  generator's state bitwise equal to the step without it under the remat
+  policies ``nothing`` and ``everything``, and within a stated tolerance
+  (the generator bitwise) under ``gn_stats`` and ``dots`` (the recompute
   must draw the forward's masks). The step against JAX's remat step is in
   ``test_torch_training.py``, which holds the compiled JAX step.
 - ``VideoSampler(devices=[cpu, cpu])``: a DDIM window equals, bitwise, the
@@ -100,7 +102,11 @@ def test_fsdp_param_placement_matches_jax(fsdp, min_size):
     assert any(a is None for a in got.values()) and any(a is not None for a in got.values())
 
 
-def test_remat_step_is_bitwise_the_plain_step_with_dropout():
+def _dropout_step(monkeypatch, policy, seed=9):
+    """One step of the tiny U-Net with dropout 0.1 drawn from a generator
+    seeded ``seed``: without remat (``policy`` None) or with
+    ``use_checkpoint`` under ``LFVDM_REMAT_POLICY=policy``. Returns (loss,
+    gradients, the generator's state after the step)."""
     rng = np.random.default_rng(0)
     C, S = CFG["in_channels"], CFG["image_size"]
     obs = np.zeros((B, K, 1, 1, 1), np.float32)
@@ -110,20 +116,55 @@ def test_remat_step_is_bitwise_the_plain_step_with_dropout():
              "obs_mask": torch.tensor(obs), "latent_mask": torch.tensor(1 - obs)}
     t, w = torch.tensor([3, 6]), torch.ones(B)
     noise = torch.randn(B, K, C, S, S, generator=torch.Generator().manual_seed(1))
-    out = {}
-    for remat in (False, True):
-        model, diffusion = create_model_and_diffusion(
-            dict(CFG, dropout=0.1, use_checkpoint=remat), device="cpu", seed=0)
-        _perturb(model)  # a fresh model's zero head would leave every other gradient 0
-        gen = torch.Generator().manual_seed(9)
-        set_dropout_generator(model, gen)
-        model.train()
-        loss, _ = backward_microbatches(model, diffusion, batch, t, w, noise=noise)
-        out[remat] = (loss, [p.grad for p in model.parameters()], gen.get_state())
-    (l0, g0, s0), (l1, g1, s1) = out[False], out[True]
-    assert torch.equal(l0, l1) and torch.equal(s0, s1)
-    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    if policy is not None:
+        monkeypatch.setenv("LFVDM_REMAT_POLICY", policy)
+    model, diffusion = create_model_and_diffusion(
+        dict(CFG, dropout=0.1, use_checkpoint=policy is not None), device="cpu", seed=0)
+    _perturb(model)  # a fresh model's zero head would leave every other gradient 0
+    gen = torch.Generator().manual_seed(seed)
+    set_dropout_generator(model, gen)
+    model.train()
+    loss, _ = backward_microbatches(model, diffusion, batch, t, w, noise=noise)
+    return loss, [p.grad for p in model.parameters()], gen.get_state()
+
+
+def test_remat_step_is_bitwise_the_plain_step_with_dropout(monkeypatch):
+    """The remat arms that keep F.group_norm (``LFVDM_REMAT_POLICY``
+    ``nothing`` and ``everything``) give the plain step's loss and
+    gradients bit for bit with dropout 0.1, and leave the dropout generator
+    where the plain step leaves it."""
+    l0, g0, s0 = _dropout_step(monkeypatch, None)
+    for policy in ("nothing", "everything"):
+        l1, g1, s1 = _dropout_step(monkeypatch, policy)
+        assert torch.equal(l0, l1) and torch.equal(s0, s1), policy
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1)), policy
     assert all(g.abs().max() > 0 for g in g0)
+
+
+def _rel_l2(got, want):
+    return (torch.cat([(a - b).reshape(-1) for a, b in zip(got, want)]).norm()
+            / torch.cat([b.reshape(-1) for b in want]).norm()).item()
+
+
+GN_STATS_TOL = 1e-5  # relative L2 of all gradients: var_mean against group_norm's statistics
+
+
+@pytest.mark.parametrize("policy", ["gn_stats", "dots"])
+def test_remat_gn_stats_step_with_dropout_matches_the_plain_step(monkeypatch, policy):
+    """The arms that take the GroupNorm statistics from var_mean (the
+    default ``gn_stats``, and ``dots``) with dropout 0.1: the loss within
+    1e-6 relative and the gradients within GN_STATS_TOL relative L2 of the
+    plain step (the statistics differ from F.group_norm's in the last
+    digits), and the dropout generator left bitwise where the plain step
+    leaves it. The recompute must draw the forward's masks: the plain step
+    with other masks (another seed) is far outside the tolerance."""
+    l0, g0, s0 = _dropout_step(monkeypatch, None)
+    l1, g1, s1 = _dropout_step(monkeypatch, policy)
+    assert torch.equal(s0, s1)
+    np.testing.assert_allclose(l1.item(), l0.item(), rtol=1e-6, atol=0)
+    assert _rel_l2(g1, g0) <= GN_STATS_TOL
+    _, other, _ = _dropout_step(monkeypatch, None, seed=10)
+    assert _rel_l2(other, g0) > 100 * GN_STATS_TOL
 
 
 def _perturb(model, seed=3):

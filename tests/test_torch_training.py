@@ -10,6 +10,8 @@ importance weights and noise are numpy arrays handed to both packages; the
 JAX parameters reach the port through ``utils/convert.py``.
 """
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,13 +34,16 @@ from lfvdm_tpu_torch.config import create_model_and_diffusion as t_create
 from lfvdm_tpu_torch.data import datasets as t_datasets
 from lfvdm_tpu_torch.diffusion import losses as t_losses
 from lfvdm_tpu_torch.diffusion import resample as t_resample
-from lfvdm_tpu_torch.models.unet import Dropout
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from lfvdm_tpu_torch.models.unet import (REMAT_POLICIES, Dropout, FactorizedAttentionBlock,
+                                         ResBlock)
 from lfvdm_tpu_torch.ops import attention as ops
 from lfvdm_tpu_torch.training import checkpoint as ckpt
 from lfvdm_tpu_torch.training import masks as t_masks
 from lfvdm_tpu_torch.training.train_loop import (
     TrainLoop, apply_gradients, backward_microbatches, init_train_state, make_optimizer,
-    train_step)
+    micro_loss, train_step)
 from lfvdm_tpu_torch.utils.convert import train_state_from_jax, unet_state_dict_from_jax
 
 CFG = flagship_config(tiny=True)
@@ -46,6 +51,18 @@ ARCH = dict(num_res_blocks=CFG["num_res_blocks"],
             channel_mult=CHANNEL_MULT_BY_IMAGE_SIZE[CFG["image_size"]], attention_resolutions=(4,))
 B, K = 2, 4
 LR, WD, RATES = 1e-4, 0.1, ("0.9999", "0.99")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: its many small ops share
+    the CPU with the other test workers, where more threads only wait on
+    each other (unpinned, this module took ~1100 s under the 6-worker tier-1
+    command). Restored afterwards."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
 
 
 def tensor(a, dtype=torch.float32):
@@ -169,9 +186,23 @@ def test_loss_and_gradients_match_jax(ref):
     assert sum(ops.launch_counts().values()) == 0
 
 
-def test_remat_loss_and_gradients_match_jax(ref):
-    """``use_checkpoint=True``: each block's forward runs again in the
-    backward (its kernels launch twice), and the step is JAX's remat step."""
+@pytest.fixture(scope="module")
+def plain_step(ref):
+    """The port's step without remat on the first batch: (loss, gradients)."""
+    state, diffusion = port_state(ref["params"])
+    batch, t, w, noise = step_inputs(ref)
+    loss, _ = backward_microbatches(state.model, diffusion, batch, t, w, noise=noise)
+    return loss, {n: p.grad.clone() for n, p in state.model.named_parameters()}
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_remat_loss_and_gradients_match_jax(ref, plain_step, monkeypatch, policy):
+    """``use_checkpoint=True`` under each ``LFVDM_REMAT_POLICY``: each block's
+    forward runs again in the backward (minus what the policy saves), and
+    the step is JAX's remat step (its default policy, ``gn_stats``). The
+    arms that keep F.group_norm (``nothing``, ``everything``) are the
+    port's plain step bit for bit."""
+    monkeypatch.setenv("LFVDM_REMAT_POLICY", policy)
     state, diffusion = port_state(ref["params"], use_checkpoint=True)
     batch, t, w, noise = step_inputs(ref)
     loss, _ = backward_microbatches(state.model, diffusion, batch, t, w, noise=noise)
@@ -180,6 +211,77 @@ def test_remat_loss_and_gradients_match_jax(ref):
     diff = np.sqrt(sum(np.square(got[k] - want[k]).sum() for k in want))
     assert diff <= 1e-5 * np.sqrt(sum(np.square(v).sum() for v in want.values()))
     assert_trees_close(got, want, rtol=1e-4, atol_rel=1e-4)
+    if policy in ("nothing", "everything"):
+        plain_loss, plain_grads = plain_step
+        assert torch.equal(loss, plain_loss)
+        assert all(torch.equal(p.grad, plain_grads[n]) for n, p in state.model.named_parameters())
+
+
+class _BlockOps(TorchDispatchMode):
+    """Counts the operators that run inside a rematerialised block's
+    ``_forward``, and the blocks they ran in, in the forward pass and in
+    the backward pass apart."""
+
+    def __init__(self):
+        super().__init__()
+        self.blocks, self.backward = [], False  # the blocks whose _forward runs, innermost last
+        self.counts = {False: collections.Counter(), True: collections.Counter()}
+        self.ran_in = {False: set(), True: set()}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.blocks and func is not torch.ops.aten.detach.default:
+            self.counts[self.backward][str(func.overloadpacket)] += 1
+            self.ran_in[self.backward].add(self.blocks[-1])
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_remat_policy_recomputes_what_it_does_not_save(ref, monkeypatch, policy):
+    """A counting dispatch mode over one remat step. ``nothing`` runs each
+    block's operators again in the backward (up to the last one the
+    backward needs: non-reentrant checkpoint stops there), the attention
+    kernels, the skip projection, the convolutions and F.group_norm among
+    them; ``everything`` runs none; ``gn_stats`` never the group statistics
+    (var_mean); ``dots`` neither those, the products nor the ``lfvdm``
+    operators, but the convolutions."""
+    monkeypatch.setenv("LFVDM_REMAT_POLICY", policy)
+    mode = _BlockOps()
+    for cls in (ResBlock, FactorizedAttentionBlock):
+        def counted(self, *a, _forward=cls._forward, **kw):
+            mode.blocks.append(id(self))
+            try:
+                return _forward(self, *a, **kw)
+            finally:
+                mode.blocks.pop()
+
+        monkeypatch.setattr(cls, "_forward", counted)
+    state, diffusion = port_state(ref["params"], use_checkpoint=True)
+    batch, t, w, noise = step_inputs(ref)
+    state.model.train()
+    with mode:
+        loss, _ = micro_loss(state.model, diffusion, batch, t, w, noise=noise)
+        mode.backward = True
+        loss.backward()
+    forward, again = mode.counts[False], mode.counts[True]
+    blocks = {id(m) for m in state.model.modules() if isinstance(m, (ResBlock,
+                                                                     FactorizedAttentionBlock))}
+    assert mode.ran_in[False] == blocks and len(blocks) == 18
+    assert all(again[k] <= n for k, n in forward.items()) and set(again) <= set(forward)
+    kernels = {k for k in forward if k.startswith("lfvdm.")}
+    products = {"aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm"}
+    assert len(kernels) == 3 and forward["aten.convolution"] > 0
+    if policy == "everything":
+        assert not again and not mode.ran_in[True]
+        return
+    assert mode.ran_in[True] == blocks  # each block runs again
+    saved = {"nothing": set(), "gn_stats": {"aten.var_mean"},
+             "dots": {"aten.var_mean"} | products | kernels}[policy]
+    assert again["aten.convolution"] > 0 and not any(again[k] for k in saved)
+    recomputed = kernels - saved | ({"aten.native_group_norm"} if policy == "nothing" else
+                                    {"aten.addmm"} - saved)
+    assert all(again[k] > 0 for k in recomputed), (recomputed, again)
+    if policy != "nothing":
+        assert forward["aten.var_mean"] > 0 and "aten.native_group_norm" not in forward
 
 
 def set_grads(model, tree):
