@@ -23,6 +23,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from ..utils import tracing
 from ..utils.device import process_index_and_count
 from ..utils.locks import Protect
 
@@ -442,20 +443,32 @@ def batch_generator(dataset, batch_size: int, deterministic: bool = False,
                     seed: int = 0) -> Iterator[np.ndarray]:
     """Batches of ``batch_size`` items of ``dataset`` forever, drawn where
     they are asked for (drop_last; each epoch shuffled by a numpy generator
-    from ``seed`` unless ``deterministic``). The prefetch thread runs it."""
+    from ``seed`` unless ``deterministic``). The prefetch thread runs it.
+    Traced (``utils/tracing.py``): each item as ``loader.read`` (a file
+    dataset's ``__getitem__`` also normalises it) and the batch's stack as
+    ``loader.normalize``."""
     rng = np.random.default_rng(seed)
     order = np.arange(len(dataset))
     while True:
         if not deterministic:
             rng.shuffle(order)
         for i in range(0, len(order) - batch_size + 1, batch_size):
-            yield np.stack([dataset[j] for j in order[i:i + batch_size]])
+            items = []
+            for j in order[i:i + batch_size]:
+                with tracing.span("loader.read"):
+                    items.append(dataset[j])
+            with tracing.span("loader.normalize"):
+                batch = np.stack(items)
+            _count_batch(batch)
+            yield batch
 
 
 def _native_batches(dataset, batch_size, T, deterministic, num_prefetch, seed):
     """Normalized batches from the native loader, or None where it cannot
     serve ``dataset``: no per-video ``.npy`` paths, ``LFVDM_NATIVE_LOADER=0``,
-    no library, or files it refuses."""
+    no library, or files it refuses. Traced (``utils/tracing.py``): the wait
+    for the C++ pool's batch as ``loader.read``, its normalisation
+    (``postprocess_video`` of every item) as ``loader.normalize``."""
     paths = getattr(dataset, "native_paths", lambda: None)()
     if not paths or os.environ.get("LFVDM_NATIVE_LOADER", "1") == "0":
         return None
@@ -474,12 +487,22 @@ def _native_batches(dataset, batch_size, T, deterministic, num_prefetch, seed):
 
     def batches():
         try:
-            for raw in native:  # (B, T, H, W, C) in the files' dtype
-                yield np.stack([dataset.postprocess_video(v) for v in raw])
+            while True:
+                with tracing.span("loader.read"):
+                    raw = next(native)  # (B, T, H, W, C) in the files' dtype
+                with tracing.span("loader.normalize"):
+                    batch = np.stack([dataset.postprocess_video(v) for v in raw])
+                _count_batch(batch)
+                yield batch
         finally:
             native.close()
 
     return batches()
+
+
+def _count_batch(batch: np.ndarray):
+    tracing.count("loader.batches")
+    tracing.count("loader.frames", batch.shape[0] * batch.shape[1])
 
 
 def _batch_generator(dataset, batch_size, T, deterministic, num_prefetch, seed):
@@ -541,7 +564,8 @@ class PrefetchedBatches:
 
 def _produce(batches, queue: Queue, stop: threading.Event):
     """Put ``batches`` into ``queue`` until ``stop`` is set; an error goes
-    into the queue for the consumer."""
+    into the queue for the consumer. Traced: each put, blocked while the
+    queue is full, as ``loader.put_wait``."""
 
     def put(item) -> bool:
         while not stop.is_set():
@@ -554,8 +578,9 @@ def _produce(batches, queue: Queue, stop: threading.Event):
 
     try:
         for batch in batches:
-            if not put(batch):
-                return
+            with tracing.span("loader.put_wait"):
+                if not put(batch):
+                    return
     except Exception as e:
         put(e)
     finally:

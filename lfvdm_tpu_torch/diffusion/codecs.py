@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .wavelet import wavelet_pack, wavelet_unpack
 
 
@@ -66,12 +67,13 @@ class PreEncodedLatentCodec:
         return video  # the inputs are normalized latents already
 
     def decode(self, video):
-        video = _f32(video)
-        video = (video * torch.as_tensor(self.std, device=video.device)
-                 + torch.as_tensor(self.mean, device=video.device))
-        if self.vae is not None:
-            return self.vae.decode(video)
-        return video
+        with tracing.span("codec.decode"):
+            video = _f32(video)
+            video = (video * torch.as_tensor(self.std, device=video.device)
+                     + torch.as_tensor(self.mean, device=video.device))
+            if self.vae is not None:
+                return self.vae.decode(video)
+            return video
 
 
 @dataclasses.dataclass
@@ -93,7 +95,8 @@ class VAECodec:
         return self.vae.encode_video(video, generator=generator, chunk_size=self.chunk_size)
 
     def decode(self, video):
-        return self.vae.decode_video(video, chunk_size=self.chunk_size)
+        with tracing.span("codec.decode"):
+            return self.vae.decode_video(video, chunk_size=self.chunk_size)
 
 
 @dataclasses.dataclass

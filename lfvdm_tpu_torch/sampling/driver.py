@@ -42,6 +42,7 @@ import torch
 from ..diffusion.dpm_solver import dpm_solver_pp_sample_loop
 from ..diffusion.gaussian import GaussianDiffusion
 from ..parallel.sharding import row_blocks
+from ..utils import tracing
 from ..utils.device import process_index_and_count
 from .graphs import WindowProgram, eval_mode
 from .schemes import sampling_schemes
@@ -120,13 +121,16 @@ class VideoSampler:
         """The model kwargs of one window on ``dev`` (default: the sampler's
         device), and its shape."""
         dev = dev or self.device
-        x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
-        kwargs = dict(
-            x0=x0,
-            frame_indices=torch.as_tensor(frame_indices, dtype=torch.int64, device=dev),
-            obs_mask=torch.as_tensor(obs_mask, dtype=torch.float32, device=dev),
-            latent_mask=torch.as_tensor(latent_mask, dtype=torch.float32, device=dev),
-        )
+        with tracing.span("driver.upload"):
+            x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+            kwargs = dict(
+                x0=x0,
+                frame_indices=torch.as_tensor(frame_indices, dtype=torch.int64, device=dev),
+                obs_mask=torch.as_tensor(obs_mask, dtype=torch.float32, device=dev),
+                latent_mask=torch.as_tensor(latent_mask, dtype=torch.float32, device=dev),
+            )
+        if tracing.enabled():
+            tracing.count("driver.h2d_bytes", sum(v.nbytes for v in kwargs.values()))
         return kwargs, tuple(x0.shape)
 
     @torch.no_grad()
@@ -269,11 +273,12 @@ class VideoSampler:
 
         indices_used = []
         while True:
-            scheme.set_videos(samples)
-            try:
-                obs_idx, latent_idx = next(scheme)
-            except StopIteration:
+            with tracing.span("driver.plan"):
+                scheme.set_videos(samples)
+                planned = next(scheme, None)
+            if planned is None:
                 break
+            obs_idx, latent_idx = planned
             if not isinstance(obs_idx[0], (list, np.ndarray)):
                 obs_idx = [list(obs_idx)] * B
                 latent_idx = [list(latent_idx)] * B
@@ -281,28 +286,44 @@ class VideoSampler:
                 print(f"conditioning on {sorted(obs_idx[0])}, "
                       f"generating {sorted(latent_idx[0])}")
 
-            frame_indices = np.concatenate(
-                [np.asarray(obs_idx, np.int64).reshape(B, -1),
-                 np.asarray(latent_idx, np.int64).reshape(B, -1)], axis=1)  # (B, K)
-            K = frame_indices.shape[1]
-            x0 = np.stack([samples[b, frame_indices[b]] for b in range(B)])
-            obs_mask = np.zeros((B, K, 1, 1, 1), np.float32)
-            obs_mask[:, : len(obs_idx[0])] = 1.0
-            latent_mask = 1.0 - obs_mask
+            with tracing.span("driver.gather"):
+                frame_indices = np.concatenate(
+                    [np.asarray(obs_idx, np.int64).reshape(B, -1),
+                     np.asarray(latent_idx, np.int64).reshape(B, -1)], axis=1)  # (B, K)
+                K = frame_indices.shape[1]
+                x0 = np.stack([samples[b, frame_indices[b]] for b in range(B)])
+                obs_mask = np.zeros((B, K, 1, 1, 1), np.float32)
+                obs_mask[:, : len(obs_idx[0])] = 1.0
+                latent_mask = 1.0 - obs_mask
 
             if just_get_indices:
                 local = np.stack([batch[b, frame_indices[b]] for b in range(B)])
             else:
-                local = self.sample_window(x0, frame_indices, obs_mask, latent_mask,
-                                           generator=generator).cpu().numpy()
-            n_latent = len(latent_idx[0])
-            for b in range(B):
-                samples[b, latent_idx[b]] = local[b, -n_latent:]
+                local = _download(self.sample_window(x0, frame_indices, obs_mask, latent_mask,
+                                                     generator=generator))
+            with tracing.span("driver.scatter"):
+                n_latent = len(latent_idx[0])
+                for b in range(B):
+                    samples[b, latent_idx[b]] = local[b, -n_latent:]
             indices_used.append((obs_idx, latent_idx))
         if self.codec is not None and not just_get_indices:
-            decoded = self.codec.decode(torch.as_tensor(samples, device=self.device))
-            samples = decoded.cpu().numpy()
+            with tracing.span("driver.upload"):
+                video = torch.as_tensor(samples, device=self.device)
+            tracing.count("driver.h2d_bytes", samples.nbytes)
+            samples = _download(self.codec.decode(video))
         return samples, indices_used
+
+
+def _download(out: torch.Tensor) -> np.ndarray:
+    """``out`` on the host as numpy. While the recorder is on, the wait for
+    the card (which ``.cpu()`` makes anyway) is a span of its own."""
+    if tracing.enabled() and out.device.type == "cuda":
+        with tracing.span("driver.wait"):
+            torch.cuda.synchronize(out.device)
+    with tracing.span("driver.download"):
+        local = out.cpu().numpy()
+    tracing.count("driver.d2h_bytes", local.nbytes)
+    return local
 
 
 def _run_program(program: WindowProgram, kwargs, shape, generator, noise, step_noise):
@@ -310,12 +331,15 @@ def _run_program(program: WindowProgram, kwargs, shape, generator, noise, step_n
     step's noise (drawn in the eager loop's order) and one run. Returns the
     caller's own copy of the state."""
     draw = _full_batch_draws(shape, generator, program.device)
-    program.load(kwargs, noise if noise is not None else draw(None))
-    for i in range(program.steps):
-        step = None
-        if program.noise is not None:
-            step = step_noise[i] if step_noise is not None else draw(i)
-        program.run(i, step)
+    with tracing.span("window.load"):
+        program.load(kwargs, noise if noise is not None else draw(None))
+    with tracing.span("window.steps"):
+        for i in range(program.steps):
+            step = None
+            if program.noise is not None:
+                step = step_noise[i] if step_noise is not None else draw(i)
+            program.run(i, step)
+    tracing.count("window.replays", program.steps)
     return program.x.clone()
 
 

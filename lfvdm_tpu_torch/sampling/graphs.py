@@ -63,6 +63,7 @@ import torch
 from ..diffusion.dpm_solver import dpm_solver_pp_rows, dpm_solver_pp_step
 from ..diffusion.gaussian import _combined_spatial, _quartile_accumulators, step_timestep
 from ..ops._common import add_launches, capture_graph
+from ..utils import tracing
 from ..utils.device import current
 
 MODES = ("ancestral", "ddim", "dpm", "reuse", "attn")
@@ -187,9 +188,10 @@ class WindowProgram:
         t0 = time.perf_counter()
         with current(self.device):
             self.diffusion.tables_on(self.device)
-        with torch.no_grad(), eval_mode(self.model):
+        with tracing.span("graph.capture"), torch.no_grad(), eval_mode(self.model):
             graph, warm, captured, delta = capture_graph(
                 lambda: self._step(kind), self.device, pool=self.pool)
+        tracing.count("graph.captures")
         if kind == "full" and self.mode == "reuse":
             # The graph's feature outputs are the reuse graph's input; they
             # take the warm-up's values, as if the graph had run.

@@ -42,6 +42,7 @@ import torch
 
 from . import ops  # noqa: F401  (registers torch.ops.lfvdm.*, which the artifact calls)
 from .ops._common import add_launches, capture_graph
+from .utils import tracing
 from .utils.device import current as _current
 
 META = "lfvdm_window_sampler.json"  # the artifact's extra file
@@ -332,8 +333,10 @@ class ServedWindow:
                     add_launches(self.delta)
                 elif self.device.type == "cuda":
                     t0 = time.perf_counter()
-                    self.graph, _, _, self.delta = capture_graph(self._step, self.device)
+                    with tracing.span("graph.capture"):
+                        self.graph, _, _, self.delta = capture_graph(self._step, self.device)
                     self.capture_s = time.perf_counter() - t0
+                    tracing.count("graph.captures")
                 else:
                     self._step()
             return buf["x"].clone()

@@ -82,6 +82,7 @@ import torch
 
 from ..models.unet import Dropout, RematDropoutStreams
 from ..ops._common import add_launches, capture_graph
+from ..utils import tracing
 from ..utils.device import current, on_capture_stream
 from .train_loop import TrainState, step_body, train_step
 
@@ -190,9 +191,11 @@ class TrainProgram:
             with streams.watch(self.state.model):
                 return self._step()
 
-        graph, warm, outputs, delta = capture_graph(
-            step, self.device, pool=self.pool,
-            generators=lambda: generators + streams.copies())
+        with tracing.span("graph.capture"):
+            graph, warm, outputs, delta = capture_graph(
+                step, self.device, pool=self.pool,
+                generators=lambda: generators + streams.copies())
+        tracing.count("graph.captures")
         self.graph, self.streams, self.delta, self.outputs = graph, streams, delta, outputs
         self.params = [p for _, p in self.state.named_params()]
         self.grads = [p.grad for p in self.params]

@@ -67,6 +67,7 @@ from ..models.unet import set_dropout_generator
 from ..ops.adamw import fused_adamw_ema
 from ..parallel import sharding
 from ..parallel.mesh import best_mesh_shape, make_mesh
+from ..utils import tracing
 from ..utils.device import any_rank, process_index_and_count
 from ..utils.logger import logger
 from . import checkpoint as ckpt_lib
@@ -466,6 +467,7 @@ class TrainLoop:
         self.profile_start_step = profile_start_step
         self.profile_num_steps = profile_num_steps
         self._profiler = None
+        self._tracing_was_on = False
         self.ema_rates = ([ema_rate] if isinstance(ema_rate, float)
                           else [float(x) for x in str(ema_rate).split(",")])
         best_mesh_shape(self.world, fsdp)  # refuses an fsdp size the group does not split into
@@ -532,17 +534,19 @@ class TrainLoop:
     # ---- host-side plumbing ----
 
     def _next_batch(self) -> np.ndarray:
-        return np.asarray(next(self.data))
+        with tracing.span("train.next_batch"):
+            return np.asarray(next(self.data))
 
     def _prepare(self, batch1, batch2) -> Dict:
         """Frames and masks of one step (numpy); with a codec, x0 is placed
         on the device (``place``) after the frames are chosen, encoded there
         and stays a tensor on the device."""
-        x0, fi, obs, lat = sample_training_batch(
-            self.host_rng, batch1, self.max_frames,
-            batch2=batch2 if self.pad_with_random_frames else None,
-            pad_with_random_frames=self.pad_with_random_frames)
-        x0 = x0.astype(np.float32)
+        with tracing.span("train.prepare"):
+            x0, fi, obs, lat = sample_training_batch(
+                self.host_rng, batch1, self.max_frames,
+                batch2=batch2 if self.pad_with_random_frames else None,
+                pad_with_random_frames=self.pad_with_random_frames)
+            x0 = x0.astype(np.float32)
         if self.codec is not None:
             x0 = self.codec.encode(place(x0, torch.float32, self.device))
         return {"x0": x0, "frame_indices": fi, "obs_mask": obs, "latent_mask": lat}
@@ -559,10 +563,13 @@ class TrainLoop:
         batch, t, weights, t as numpy, weights as numpy)."""
         batch1 = self._next_batch()
         batch2 = self._next_batch() if self.pad_with_random_frames else batch1
-        batch = self.to_device(self._prepare(batch1, batch2))
-        t_np, w_np = self.schedule_sampler.sample(batch["x0"].shape[0], self.host_rng)
-        t = place(t_np, torch.int64, self.device)
-        w = place(w_np, torch.float32, self.device)
+        prepared = self._prepare(batch1, batch2)
+        t_np, w_np = self.schedule_sampler.sample(prepared["x0"].shape[0], self.host_rng)
+        with tracing.span("train.place"):
+            batch = self.to_device(prepared)
+            t = place(t_np, torch.int64, self.device)
+            w = place(w_np, torch.float32, self.device)
+        tracing.count("train.frames", batch["x0"].shape[0] * batch["x0"].shape[1])
         return batch, t, w, t_np, w_np
 
     # ---- main loop ----
@@ -591,15 +598,20 @@ class TrainLoop:
         return program
 
     def run_step(self):
+        with tracing.span("train.step"):
+            return self._run_step()
+
+    def _run_step(self):
         t0 = time.time()
         batch, t, w, t_np, w_np = self.next_step_inputs()
         noise = draw_noise(self.generator, batch["x0"], self.n_microbatches)
-        if self.step_kind == "captured":
-            metrics = self._program_for(batch).run(batch, t, w, noise)
-        else:
-            metrics = train_step(self.state, batch, t, w, diffusion=self.diffusion, noise=noise,
-                                 n_microbatches=self.n_microbatches,
-                                 pad_with_random_frames=self.pad_with_random_frames)
+        with tracing.span("train.replay"):
+            if self.step_kind == "captured":
+                metrics = self._program_for(batch).run(batch, t, w, noise)
+            else:
+                metrics = train_step(self.state, batch, t, w, diffusion=self.diffusion,
+                                     noise=noise, n_microbatches=self.n_microbatches,
+                                     pad_with_random_frames=self.pad_with_random_frames)
         if isinstance(self.schedule_sampler, LossAwareSampler):
             self.schedule_sampler.update_with_local_losses(t_np, _numpy(metrics["loss"]))
         self._pending.append((self.step, t_np, w_np, metrics, time.time() - t0))
@@ -660,12 +672,16 @@ class TrainLoop:
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         self._profiler = profile(activities=activities)
+        self._tracing_was_on = tracing.enabled()
+        tracing.enable()  # the port's spans, as lfvdm.* ranges in the trace
         self._profiler.start()
 
     def _stop_profile(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._profiler.stop()
+        if not self._tracing_was_on:
+            tracing.disable()
         os.makedirs(self.profile_dir, exist_ok=True)
         self._profiler.export_chrome_trace(os.path.join(self.profile_dir, "train_trace.json"))
         self._profiler = None
