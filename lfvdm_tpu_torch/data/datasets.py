@@ -9,7 +9,8 @@ infinite loader: sharded by the ``torch.distributed`` rank and world size
 C++ loader (``data/native_loader.py``) where a dataset exposes per-video
 ``.npy`` paths and through Python otherwise, prefetched on a background
 thread. Batches, their order and their seeds (``seed + shard``) are the JAX
-package's.
+package's; the native loader's are left unnormalised (``RawVideoBatch``)
+until their frames are used.
 """
 
 from __future__ import annotations
@@ -417,7 +418,7 @@ def load_data(dataset_name: str, batch_size: int, T: Optional[int] = None,
               image_size: Optional[int] = None):
     """Infinite batch generator, sharded across processes.
 
-    Yields float32 (B, T, C, H, W) numpy batches forever (drop_last: an epoch
+    Yields float32 (B, T, C, H, W) batches forever (drop_last: an epoch
     is a pass in an order shuffled by a numpy generator from ``seed +
     shard``; ``deterministic`` keeps the dataset order, random window starts
     stay; test mode is ``get_test_dataset``). T defaults to the registry's
@@ -425,8 +426,11 @@ def load_data(dataset_name: str, batch_size: int, T: Optional[int] = None,
     synthetic videos (the JAX package renders its default 64); None keeps
     that default. Batches are read by the native loader where the dataset
     has per-video ``.npy`` files, else in Python, on a background thread
-    ``num_prefetch`` batches ahead. A dataset in one directory refuses more
-    than one process: every process would read the same rows.
+    ``num_prefetch`` batches ahead. The native loader's batches are
+    ``RawVideoBatch``es, the frames as read: ``np.asarray`` of one is the
+    float32 batch, bit for bit, and indexing it normalises only the frames
+    it selects. A dataset in one directory refuses more than one process:
+    every process would read the same rows.
     """
     T = default_T_dict.get(dataset_name) if T is None else T
     shard, num_shards = process_index_and_count()
@@ -463,12 +467,58 @@ def batch_generator(dataset, batch_size: int, deterministic: bool = False,
             yield batch
 
 
+class RawVideoBatch:
+    """A native-loader batch as read, normalised where it is used.
+
+    Holds the C++ loader's (B, T, ...) array in the files' dtype and the
+    dataset's ``postprocess_video``, and stands for the float32 batch
+    ``np.stack([postprocess_video(v) for v in raw])``: ``shape``, ``dtype``,
+    ``len`` and iteration are that batch's, ``np.asarray`` of it is that
+    batch bit for bit, and ``batch[b]`` or ``batch[b, frames]`` (an int, a
+    slice or an index array, which may repeat) normalise only those frames,
+    to the same bits: ``postprocess_video`` maps each frame on its own. Counted
+    (``utils/tracing.py``): the frames normalised as
+    ``loader.frames_normalized``, a whole batch as
+    ``loader.batches_materialized``."""
+
+    def __init__(self, raw: np.ndarray, postprocess_video):
+        self.raw = raw
+        self.postprocess_video = postprocess_video
+        frame = postprocess_video(raw[0, :0])  # no frames: the normalised frame's shape
+        self.shape = raw.shape[:2] + frame.shape[1:]
+        self.dtype = frame.dtype
+
+    def __len__(self):
+        return self.shape[0]
+
+    def __iter__(self):
+        return (self[b] for b in range(len(self)))
+
+    def __array__(self, dtype=None, copy=None):
+        tracing.count("loader.batches_materialized")
+        tracing.count("loader.frames_normalized", self.shape[0] * self.shape[1])
+        out = np.stack([self.postprocess_video(v) for v in self.raw])
+        return out if dtype is None else out.astype(dtype, copy=False)
+
+    def __getitem__(self, key):
+        row, frames = key if isinstance(key, tuple) and len(key) == 2 else (key, slice(None))
+        if not isinstance(row, (int, np.integer)):
+            return np.asarray(self)[key]
+        one = isinstance(frames, (int, np.integer))
+        out = self.postprocess_video(self.raw[row, [frames] if one else frames])
+        tracing.count("loader.frames_normalized", out.shape[0])
+        if np.may_share_memory(out, self.raw):  # a pass-through postprocess_video
+            out = out.copy()
+        return out[0] if one else out
+
+
 def _native_batches(dataset, batch_size, T, deterministic, num_prefetch, seed):
-    """Normalized batches from the native loader, or None where it cannot
+    """``RawVideoBatch``es from the native loader, or None where it cannot
     serve ``dataset``: no per-video ``.npy`` paths, ``LFVDM_NATIVE_LOADER=0``,
-    no library, or files it refuses. Traced (``utils/tracing.py``): the wait
-    for the C++ pool's batch as ``loader.read``, its normalisation
-    (``postprocess_video`` of every item) as ``loader.normalize``."""
+    no library, or files it refuses. ``np.asarray`` of a batch is the
+    normalised float32 (B, T, C, H, W) batch, bit for bit; the train loop
+    normalises only the frames a step uses. Traced (``utils/tracing.py``):
+    the wait for the C++ pool's batch as ``loader.read``."""
     paths = getattr(dataset, "native_paths", lambda: None)()
     if not paths or os.environ.get("LFVDM_NATIVE_LOADER", "1") == "0":
         return None
@@ -490,8 +540,7 @@ def _native_batches(dataset, batch_size, T, deterministic, num_prefetch, seed):
             while True:
                 with tracing.span("loader.read"):
                     raw = next(native)  # (B, T, H, W, C) in the files' dtype
-                with tracing.span("loader.normalize"):
-                    batch = np.stack([dataset.postprocess_video(v) for v in raw])
+                batch = RawVideoBatch(raw, dataset.postprocess_video)
                 _count_batch(batch)
                 yield batch
         finally:
@@ -500,7 +549,7 @@ def _native_batches(dataset, batch_size, T, deterministic, num_prefetch, seed):
     return batches()
 
 
-def _count_batch(batch: np.ndarray):
+def _count_batch(batch):
     tracing.count("loader.batches")
     tracing.count("loader.frames", batch.shape[0] * batch.shape[1])
 
@@ -514,8 +563,8 @@ class PrefetchedBatches:
     """The infinite batch iterator ``load_data`` returns: the native loader's
     batches where it can serve the dataset, else ``batch_generator``'s,
     read on a background thread ``num_prefetch`` batches ahead (started by
-    the first ``next``), so reading and normalising stay off the consumer's
-    path. An error on the thread is raised in the consumer. ``source`` says
+    the first ``next``), so reading, and the Python loader's normalising,
+    stay off the consumer's path. An error on the thread is raised in the consumer. ``source`` says
     which loader reads ("native" or "python", set by the first ``next``),
     ``served`` counts the batches handed out. The thread stops at its next
     batch boundary once the iterator is closed or collected (it holds no
@@ -534,7 +583,7 @@ class PrefetchedBatches:
     def __iter__(self):
         return self
 
-    def __next__(self) -> np.ndarray:
+    def __next__(self):
         if self.source is None:
             dataset, batch_size, T, deterministic, num_prefetch, seed = self._args
             batches = _native_batches(dataset, batch_size, T, deterministic, num_prefetch, seed)

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data.datasets import RawVideoBatch
 from ..diffusion.gaussian import GaussianDiffusion, _randn
 from ..diffusion.resample import LossAwareSampler, ScheduleSampler, UniformSampler
 from ..models.unet import set_dropout_generator
@@ -533,19 +534,26 @@ class TrainLoop:
 
     # ---- host-side plumbing ----
 
-    def _next_batch(self) -> np.ndarray:
+    def _next_batch(self):
+        """The next batch as an array, or as the native loader's
+        ``RawVideoBatch``, left unnormalised for ``_prepare``."""
         with tracing.span("train.next_batch"):
-            return np.asarray(next(self.data))
+            batch = next(self.data)
+            return batch if isinstance(batch, RawVideoBatch) else np.asarray(batch)
 
     def _prepare(self, batch1, batch2) -> Dict:
         """Frames and masks of one step (numpy); with a codec, x0 is placed
         on the device (``place``) after the frames are chosen, encoded there
-        and stays a tensor on the device."""
+        and stays a tensor on the device. From ``RawVideoBatch``es only the
+        chosen frames are normalised, as they are indexed
+        (``train.normalize``)."""
         with tracing.span("train.prepare"):
-            x0, fi, obs, lat = sample_training_batch(
-                self.host_rng, batch1, self.max_frames,
-                batch2=batch2 if self.pad_with_random_frames else None,
-                pad_with_random_frames=self.pad_with_random_frames)
+            raw = isinstance(batch1, RawVideoBatch)
+            with tracing.span("train.normalize") if raw else tracing.NO_SPAN:
+                x0, fi, obs, lat = sample_training_batch(
+                    self.host_rng, batch1, self.max_frames,
+                    batch2=batch2 if self.pad_with_random_frames else None,
+                    pad_with_random_frames=self.pad_with_random_frames)
             x0 = x0.astype(np.float32)
         if self.codec is not None:
             x0 = self.codec.encode(place(x0, torch.float32, self.device))

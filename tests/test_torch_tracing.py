@@ -224,7 +224,18 @@ def test_train_loop_and_loader_spans(tmp_path, monkeypatch, native):
     assert batches >= 2 * steps  # the thread runs ahead by its queue
     per_batch = B if native == "0" else 1  # the Python loader reads item by item
     assert names["loader.read"] >= per_batch * batches
-    assert names["loader.normalize"] >= batches and names["loader.put_wait"] >= 2 * steps
+    assert names["loader.put_wait"] >= 2 * steps
+    if native == "0":  # the Python loader normalises whole batches on its thread
+        assert names["loader.normalize"] >= batches
+        assert "train.normalize" not in names
+    else:  # native batches come raw: a step normalises the frames it chose, on this thread
+        assert "loader.normalize" not in names
+        assert names["train.normalize"] == steps
+        for s in spans:
+            if s.name == "train.normalize":
+                assert s.thread == main and spans[s.parent].name == "train.prepare"
+        assert 0 < _total("loader.frames_normalized") <= steps * 2 * B * K
+        assert _total("loader.batches_materialized") == 0
     # Over the batches the steps used, the steps' frames are K of every 2T.
     used = sorted((c for c in tracing.counts() if c.name == "loader.frames"),
                   key=lambda c: c.t_ns)[:2 * steps]
