@@ -33,17 +33,37 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                (one EMA at 0.9999, no decay) beside torch._fused_adamw_
                (AdamW alone, the nearest library call) and its bytes bound.
   4. unet    — the flagship U-Net (128 px, B=2, K=20, bf16, random non-zero
-               weights) on the kernel path against the plain path (and the
-               same weights in f32), and with the fused skip projection against
+               weights) on the kernel path against the plain path (bf16: no
+               farther from the same weights' f32 plain forward than the
+               plain path, within 5%; f32: 1e-4), and with the fused skip
+               projection against
                the unfused form (bf16 and f32), timed both ways; 7 + 7 + 10
                launches per forward, every spatial launch on the "mma" route
                and every skip projection on the "bulk" route;
                then a torch.profiler breakdown of one forward's device time.
+  4b. norms  — the fused GroupNorm + scale-shift + SiLU kernel
+               (group_norm_silu) on the calls of one no-grad flagship forward
+               (35: 34 ResBlock norms and the head) and one latent forward
+               (29), on the forward's own activations: at every call each
+               element within 2^-8 of the chain computed in f32 plus 1e-5 of
+               the call's largest value (f32 output: 2e-5 and 2e-5), and the
+               bf16 output's RMS error no worse than the plain chain's (which
+               rounds two to four times where the kernel rounds once); then
+               device ms per forward of the kernel, the
+               plain chain and F.group_norm + F.silu (the library yardstick,
+               weights in the input's dtype, no scale-shift), beside its
+               bytes bound (x read once and y written once; and with the
+               statistics read again where no sums are given), per site.
   5. sample  — the sampling path: VideoSampler.sample_video over a 40-frame
                video (autoreg, 3 windows of K=20, ancestral, 50 steps), then one
                DDIM (ddim25) and one DPM-Solver++ (dpm20) window. Launch counts
                are reset just before and read just after; each must equal
-               7 + 7 + 10 per model call, on the same routes. Every sampling
+               7 + 7 + 10 per model call, on the same routes, and 35 of the
+               fused norm kernel. Every phase counts that kernel beside the
+               three (read_counts): 35 per no-grad flagship call, 21 per
+               reuse call (the up path's 10 ResBlocks and the head), 35 per
+               heatmap call, 29 per latent call, and none in a train step,
+               which takes gradients through the norms. Every sampling
                phase samples captured (VideoSampler's default: a CUDA graph of
                one reverse step per window shape, replayed once per step; the
                replays add the launches their capture recorded).
@@ -246,7 +266,7 @@ Phases, each printing JSON lines; any failure raises (non-zero exit):
                   the prefetch against the synchronous generator.
                e. phase 5b d (above) on the same fixture.
                Every model call launches 7 + 7 + 10 kernels on "mma"/"bulk"
-               (a reuse call 4 + 4 + 10).
+               (a reuse call 4 + 4 + 10), and the fused norm 35 times (21).
  10. evals   — at PyTorch's TF32 defaults (the evals turn TF32 off in their own
                scope), on seeded fixtures in a temporary directory; no port
                kernel launches on this path:
@@ -330,7 +350,19 @@ ADAMW_LR, ADAMW_COUNT, ADAMW_RATE = 1e-4, 5, 0.9999
 # so that a kernel skipping an EMA store or the decay fails it.
 ADAMW_CHECK_RATE, ADAMW_CHECK_WD, ADAMW_SEEN = 0.5, 0.2, 4.0
 ADAMW_TIMED = 6  # queued calls timed (host ~4 ms each, inside the ~50 ms spin)
-PER_FORWARD = {"temporal_rpe_attention": 7, "spatial_attention": 7, "skip_conv_stats": 10}
+# The U-Net's fused normalisation kernel: it replaces no Pallas kernel (the JAX
+# package leaves the chain to XLA, which fuses it).
+GN_NAME = "group_norm_silu"
+GN_SOURCE = "lfvdm_tpu_torch/ops/csrc/group_norm_silu.cu"
+GN_REPLACES = ("none (no pl.pallas_call): lfvdm_tpu/models/unet.py ResBlock and the head's "
+               "GroupNorm32 -> * (1 + scale) + shift -> SiLU, an XLA fusion")
+# Launches per no-grad model call (sampling, serving): the fused norm kernel
+# at every ResBlock's two norms and the head. A train step takes gradients
+# through every norm, so its modules run and the kernel launches nothing
+# (TRAIN_PER_STEP).
+PER_FORWARD = {"temporal_rpe_attention": 7, "spatial_attention": 7, "skip_conv_stats": 10,
+               GN_NAME: 35}
+TRAIN_PER_STEP = dict(PER_FORWARD, **{GN_NAME: 0})
 # The spatial kernel's route by dtype (ops/attention.py _spatial_route at the
 # flagship widths), and the SDPA backend its yardstick is pinned to.
 SPATIAL_ROUTES = {"bfloat16": "mma", "float32": "fma"}
@@ -362,7 +394,9 @@ LATENT_SKIP_SHAPES = [("ds8", 128, 128, 128, 4), ("ds8", 128, 128, 128, 4),
                       ("ds4", 128, 128, 128, 8), ("ds4", 128, 128, 128, 8),
                       ("ds2", 128, 128, 128, 16), ("ds2", 128, 64, 128, 16),
                       ("ds1", 128, 64, 64, 32), ("ds1", 64, 64, 64, 32)]
-LATENT_PER_FORWARD = {"temporal_rpe_attention": 7, "spatial_attention": 7, "skip_conv_stats": 8}
+LATENT_PER_FORWARD = {"temporal_rpe_attention": 7, "spatial_attention": 7, "skip_conv_stats": 8,
+                      GN_NAME: 29}
+LATENT_TRAIN_PER_STEP = dict(LATENT_PER_FORWARD, **{GN_NAME: 0})
 LATENT_WINDOW = dict(B=LATENT_B, K=LATENT_K, n_obs=2, n_latent=3)  # window_inputs sizes
 LATENT_RESPACING = "50"
 LATENT_VIDEO_T = 20
@@ -921,7 +955,29 @@ def kernels_line(results, launches_by_path, routes_by_path):
             entry["library"] = rows[0][0]["library"]
         entries.append(entry)
     entries.append(_adamw_entry(results))
+    if (GN_NAME, "flagship") in results:
+        entries.append(_group_norm_entry(results, launches_by_path))
     return {"kernels": entries}
+
+
+def _group_norm_entry(results, launches_by_path):
+    """The fused norm kernel's entry: phase 4b's numbers for one flagship
+    forward's 35 calls, the latent forward's 29 beside them. ``launches``
+    counts its launches on the sampling path (phase 5's video; the training
+    path takes gradients and launches none), the other paths' beside it."""
+    keys = ("max_abs_err", "limit_violations", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "bound_with_stats_read_ms")
+    flagship, latent = results[(GN_NAME, "flagship")], results.get((GN_NAME, "latent"))
+    return {"name": GN_NAME, "route": "cuda", "source": GN_SOURCE, "replaces": GN_REPLACES,
+            "launches": launches_by_path["sample_video"][GN_NAME],
+            "launches_by_path": {path: c.get(GN_NAME) for path, c in launches_by_path.items()},
+            **{k: flagship[k] for k in keys},
+            "unit": f"one flagship U-Net forward {flagship['shape']}, bf16, no grad: "
+                    f"{flagship['calls_per_forward']} calls",
+            "library": flagship["library"],
+            "latent": None if latent is None else dict(
+                {k: latent[k] for k in keys}, unit=f"one latent U-Net forward {latent['shape']}: "
+                                                  f"{latent['calls_per_forward']} calls")}
 
 
 def _adamw_entry(results):
@@ -959,6 +1015,11 @@ def _summed(rows):
 
 
 ZERO_MODULE_SCALE = 0.1
+# Phase 4: the bf16 kernel path's relative L2 to the f32 plain forward, at
+# most this times the bf16 plain path's (over 6 inputs on the H100 the ratio
+# was 0.976-0.978 flagship and 0.976-1.001 latent: PERF.md); a kernel
+# fault adding an error of a third of the plain path's own exceeds it.
+KERNEL_VS_PLAIN_ACCURACY = 1.05
 
 
 def randomize_zero_modules(model, gen):
@@ -1028,9 +1089,10 @@ def window_inputs(cfg, device, gen, B=FLAGSHIP_B, K=FLAGSHIP_K, n_obs=10, n_late
 
 def phase_unet(cfg, model, latent=False):
     """The bf16 forward (flagship, or the latent config's with ``latent``) on
-    the kernel path against the plain path (relative L2 <= 5e-3), and the
-    same weights in f32 (TF32 off), where the two paths differ only by
-    summation order (relative L2 <= 1e-4)."""
+    the kernel path against the plain path, both against the same weights'
+    plain forward in f32 (TF32 off): the kernel path's relative L2 to it at
+    most KERNEL_VS_PLAIN_ACCURACY times the plain path's; and in f32, where
+    the two paths differ only by summation order (relative L2 <= 1e-4)."""
     import torch
 
     from lfvdm_tpu_torch.models.unet import attention_blocks, fused_skip_blocks
@@ -1055,7 +1117,7 @@ def phase_unet(cfg, model, latent=False):
         torch.cuda.synchronize()
         counts, routes = read_counts()
         ref, _ = model(x, t, impl="plain", **kw)
-        if ops.launch_counts() != counts:
+        if read_counts()[0] != counts:
             raise RuntimeError("the plain path launched a kernel")
         ms = cuda_ms(lambda: model(x, t, **kw), 10)
         plain_ms = cuda_ms(lambda: model(x, t, impl="plain", **kw), 10)
@@ -1071,7 +1133,7 @@ def phase_unet(cfg, model, latent=False):
 
     row = {"phase": "unet", "path": path, "shape": list(x.shape), "dtype": "bfloat16",
            "launches_per_forward": counts, "routes_per_forward": routes,
-           "rel_l2_vs_plain": rel(out, ref),
+           "rel_l2_vs_plain": rel(out, ref), "rel_l2_vs_f32_plain": rel(out, ref32),
            "f32_rel_l2_vs_plain": rel(out32, ref32), "bf16_plain_vs_f32_plain": rel(ref, ref32),
            "fused_vs_unfused_rel_l2": rel(out, unfused),
            "f32_fused_vs_unfused_rel_l2": rel(out32, unfused32),
@@ -1085,7 +1147,12 @@ def phase_unet(cfg, model, latent=False):
     if ref.abs().max().item() == 0.0:
         raise RuntimeError("U-Net output is exactly zero: the comparison would be vacuous")
     _check_launches(counts, routes, 1, per_forward, route_counts)
-    for key, limit in (("rel_l2_vs_plain", 5e-3), ("f32_rel_l2_vs_plain", 1e-4),
+    # The bf16 kernel path no farther from the f32 forward than the bf16 plain
+    # path: the fused norm kernel rounds once where the plain chain rounds two
+    # to four times, so the two bf16 paths now differ by the network's
+    # amplification of that (latent 5.9-6.0e-3), not by the kernels alone.
+    bf16_limit = KERNEL_VS_PLAIN_ACCURACY * row["bf16_plain_vs_f32_plain"]
+    for key, limit in (("rel_l2_vs_f32_plain", bf16_limit), ("f32_rel_l2_vs_plain", 1e-4),
                        ("fused_vs_unfused_rel_l2", 1e-2), ("f32_fused_vs_unfused_rel_l2", 1e-4)):
         if not row[key] <= limit:
             raise RuntimeError(f"U-Net {key} = {row[key]} > {limit}")
@@ -1113,6 +1180,128 @@ def _unfused(model, x, t, kw, time_it=True):
         model.fused_skip_conv = True
     torch.cuda.synchronize()
     return out, sum(times[False]) / 2, sum(times[True]) / 2
+
+
+def norm_calls(model, x, t, kw):
+    """The ``GroupNorm32.silu`` calls of one no-grad forward, as (norm, its
+    input, its keyword arguments): the model's own activations."""
+    import torch
+
+    from lfvdm_tpu_torch.models.nn import GroupNorm32
+
+    calls = []
+    real = GroupNorm32.silu
+
+    def spy(self, h, **kw_):
+        calls.append((self, h, kw_))
+        return real(self, h, **kw_)
+
+    GroupNorm32.silu = spy
+    try:
+        with torch.no_grad():
+            model(x, t, **kw)
+    finally:
+        GroupNorm32.silu = real
+    return calls
+
+
+def norm_site_error(norm, h, k, out):
+    """The fused norm kernel's output ``out`` at one call (``norm.silu(h,
+    **k)``) against the chain computed in f32 (x, scale and shift read in
+    f32, no rounding): the largest error, the limit at that element, the
+    elements over their limit, and the RMS error beside the plain chain's.
+    The limit, as ``tests/test_torch_group_norm_cuda.py`` holds the kernel:
+    bf16 output 2^-8·|exact| + 1e-5·max|exact| (one rounding, half an ulp,
+    plus f32 summation order), f32 output 2e-5·|exact| + 2e-5·max|exact|."""
+    import torch
+
+    from lfvdm_tpu_torch.ops import groupnorm
+
+    s1, s2 = k.get("sums") or (None, None)
+    scale, shift = k.get("scale"), k.get("shift")
+    common = (norm.weight, norm.bias)
+    plain = groupnorm.group_norm_silu_plain(h, *common, scale, shift, s1, s2, norm.num_groups,
+                                            norm.eps, norm.out_dtype)
+    exact = groupnorm.group_norm_silu_plain(
+        h.float(), *common, None if scale is None else scale.float(),
+        None if shift is None else shift.float(), s1, s2, norm.num_groups, norm.eps,
+        torch.float32)
+    err = (out.float() - exact).abs()
+    rel, floor = (2.0 ** -8, 1e-5) if out.dtype == torch.bfloat16 else (2e-5, 2e-5)
+    limit = rel * exact.abs() + floor * exact.abs().max()
+    worst = err.flatten().argmax()
+    return {"max_abs_err": err.flatten()[worst].item(), "limit": limit.flatten()[worst].item(),
+            "limit_violations": int((err > limit).sum().item()),
+            "rms_err": err.square().mean().sqrt().item(),
+            "plain_rms_err": (plain.float() - exact).square().mean().sqrt().item()}
+
+
+def phase_group_norm(cfg, model, latent=False):
+    """Phase 4b: the fused norm kernel on one forward's calls (module
+    docstring); raises where a call is over its limit (``norm_site_error``).
+    Returns the kernels line's row, keyed ``(GN_NAME, path)``."""
+    import torch
+    import torch.nn.functional as F
+
+    from lfvdm_tpu_torch.ops import groupnorm
+
+    path = "latent" if latent else "flagship"
+    want_calls = (LATENT_PER_FORWARD if latent else PER_FORWARD)[GN_NAME]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x, t, kw = window_inputs(cfg, "cuda", gen, **(LATENT_WINDOW if latent else {}))
+    calls = norm_calls(model, x, t, kw)
+    if len(calls) != want_calls:
+        raise RuntimeError(f"{path}: {len(calls)} group_norm_silu calls a forward, expected "
+                           f"{want_calls}")
+
+    def plain_args(norm, h, k):
+        s1, s2 = k.get("sums") or (None, None)
+        return (h, norm.weight, norm.bias, k.get("scale"), k.get("shift"), s1, s2,
+                norm.num_groups, norm.eps, norm.out_dtype)
+
+    lib_w = [(n.weight.to(h.dtype), n.bias.to(h.dtype)) for n, h, _ in calls]
+    sites, nbytes, stats_bytes, failed = [], 0.0, 0.0, []
+    with torch.no_grad():
+        before = groupnorm.group_norm_silu.launches
+        outs = [norm.silu(h, **k) for norm, h, k in calls]
+        torch.cuda.synchronize()
+        if groupnorm.group_norm_silu.launches - before != len(calls):
+            raise RuntimeError("group_norm_silu: a call did not launch its kernel")
+        for i, ((norm, h, k), out) in enumerate(zip(calls, outs)):
+            e = norm_site_error(norm, h, k, out)
+            b = h.numel() * (h.element_size() + out.element_size())
+            nbytes += b
+            stats_bytes += h.numel() * h.element_size() if k.get("sums") is None else 0
+            ms = cuda_ms(lambda: norm.silu(h, **k), 20, queued=True)
+            sites.append({"call": i, "shape": list(h.shape), "sums": k.get("sums") is not None,
+                          "scale_shift": k.get("scale") is not None,
+                          "out_dtype": str(out.dtype).replace("torch.", ""), "ms": ms,
+                          "bound_ms": bound(b, 0, "bfloat16")[0], **e})
+            if e["limit_violations"] or (out.dtype == torch.bfloat16
+                                         and not e["rms_err"] <= e["plain_rms_err"]):
+                failed.append(sites[-1])
+        ms = cuda_ms(lambda: [norm.silu(h, **k) for norm, h, k in calls], 10, queued=True)
+        plain_ms = cuda_ms(lambda: [groupnorm.group_norm_silu_plain(*plain_args(*c))
+                                    for c in calls], 5, queued=True)
+        library_ms = cuda_ms(lambda: [F.silu(F.group_norm(h, n.num_groups, w, b_, n.eps))
+                                      for (n, h, _), (w, b_) in zip(calls, lib_w)], 10,
+                             queued=True)
+    row = {"phase": "norms", "path": path, "name": GN_NAME, "shape": list(x.shape),
+           "calls_per_forward": len(calls), "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": "F.group_norm + F.silu",
+           "bytes": nbytes, "flops": 0.0, "bound_ms": bound(nbytes, 0, "bfloat16")[0],
+           "bound_by": "bytes",
+           "bound_with_stats_read_ms": bound(nbytes + stats_bytes, 0, "bfloat16")[0],
+           "max_abs_err": max(e["max_abs_err"] for e in sites),
+           "limit_violations": sum(e["limit_violations"] for e in sites),
+           "limit": "bf16 out: 2^-8 |f32 chain| + 1e-5 max |f32 chain|, RMS <= the plain "
+                    "chain's; f32 out: 2e-5 |f32 chain| + 2e-5 max |f32 chain|",
+           "sites": sites}
+    emit(row)
+    if failed:
+        raise RuntimeError(f"group_norm_silu ({path}): {len(failed)} calls over their limit: "
+                           f"{failed}")
+    return {(GN_NAME, path): row}
 
 
 def phase_profile(cfg, model, forwards: int = 3, path="flagship", window=None):
@@ -1226,12 +1415,15 @@ def phase_sample(cfg, model, diffusion):
 
 # Launches per model call on the reuse paths of the flagship U-Net. A reuse
 # call runs only the up path and the head: its 4 attention blocks (2 at ds 16,
-# 2 at ds 8) and its 10 skip projections, at the full call's shapes, so on the
-# same "mma" and "bulk" routes. A heatmap call (return_attn_weights) takes
-# every attention block's einsum form, which returns the weights; only its 10
-# skip projections launch. reuse_forward_counts() derives both from the model.
-REUSE_PER_FORWARD = {"temporal_rpe_attention": 4, "spatial_attention": 4, "skip_conv_stats": 10}
-ATTN_PER_FORWARD = {"temporal_rpe_attention": 0, "spatial_attention": 0, "skip_conv_stats": 10}
+# 2 at ds 8), its 10 skip projections, at the full call's shapes, so on the
+# same "mma" and "bulk" routes, and the norms of its 10 ResBlocks and the
+# head. A heatmap call (return_attn_weights) takes every attention block's
+# einsum form, which returns the weights; its 10 skip projections and all 35
+# norms launch. reuse_forward_counts() derives both from the model.
+REUSE_PER_FORWARD = {"temporal_rpe_attention": 4, "spatial_attention": 4, "skip_conv_stats": 10,
+                     GN_NAME: 21}
+ATTN_PER_FORWARD = {"temporal_rpe_attention": 0, "spatial_attention": 0, "skip_conv_stats": 10,
+                    GN_NAME: 35}
 REUSE_K = 3
 REUSE_RESPACING = "50"
 ATTN_RESPACING = "8"
@@ -1239,13 +1431,16 @@ ATTN_RESPACING = "8"
 
 def reuse_forward_counts(model):
     """(reuse call, heatmap call) launches per call, from ``model``'s blocks."""
-    from lfvdm_tpu_torch.models.unet import FactorizedAttentionBlock, fused_skip_blocks
+    from lfvdm_tpu_torch.models.unet import FactorizedAttentionBlock, ResBlock, fused_skip_blocks
 
     up_attn = sum(isinstance(m, FactorizedAttentionBlock) for m in model.output_blocks.modules())
     skips = fused_skip_blocks(model)
+    up_norms = 2 * sum(isinstance(m, ResBlock) for m in model.output_blocks.modules()) + 1
+    norms = 2 * sum(isinstance(m, ResBlock) for m in model.modules()) + 1
     return ({"temporal_rpe_attention": up_attn, "spatial_attention": up_attn,
-             "skip_conv_stats": skips},
-            {"temporal_rpe_attention": 0, "spatial_attention": 0, "skip_conv_stats": skips})
+             "skip_conv_stats": skips, GN_NAME: up_norms},
+            {"temporal_rpe_attention": 0, "spatial_attention": 0, "skip_conv_stats": skips,
+             GN_NAME: norms})
 
 
 def mixed_counts(full, reuse):
@@ -1623,6 +1818,7 @@ torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = (
 t0 = time.perf_counter()
 from lfvdm_tpu_torch import serving
 from lfvdm_tpu_torch.ops import attention as ops
+from lfvdm_tpu_torch.ops import groupnorm
 params = serving.load_params_npz(d + "/params.npz", device="cuda")
 with open(d + "/sampler.pt2", "rb") as f:
     run = serving.load_window_sampler(f.read())
@@ -1633,8 +1829,9 @@ w = np.load(d + "/window.npz")
 win = [torch.from_numpy(w[k]).cuda() for k in ("x0", "frame_indices", "obs_mask", "latent_mask")]
 seed = int(w["seed"])
 def counts():
-    return ops.launch_counts(), {{n: dict(getattr(ops, n).launches_by_route)
-                                 for n in ("spatial_attention", "skip_conv_stats")}}
+    return dict(ops.launch_counts(), group_norm_silu=groupnorm.group_norm_silu.launches), {{
+        n: dict(getattr(ops, n).launches_by_route)
+        for n in ("spatial_attention", "skip_conv_stats")}}
 def event_ms(fn):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -2014,11 +2211,13 @@ def _check_video(samples, video, n_obs, used, T):
 
 
 def read_counts():
-    """Launch counts by kernel, and the routed kernels' counts by route."""
+    """Launch counts by kernel (the U-Net's three and its fused norm), and
+    the routed kernels' counts by route."""
     from lfvdm_tpu_torch.ops import attention as ops
+    from lfvdm_tpu_torch.ops import groupnorm
 
-    return ops.launch_counts(), {name: dict(getattr(ops, name).launches_by_route)
-                                 for name in ROUTED}
+    return ({**ops.launch_counts(), GN_NAME: groupnorm.group_norm_silu.launches},
+            {name: dict(getattr(ops, name).launches_by_route) for name in ROUTED})
 
 
 def _check_launches(launches, routes, calls, per_forward=PER_FORWARD, route_counts=None):
@@ -2140,7 +2339,7 @@ def phase_train(ckpt_dir, card):
     m2 = train_step(loop.state, batch, t, w, diffusion=loop.diffusion, generator=loop.generator,
                     n_microbatches=2)
     torch.cuda.synchronize()
-    micro_launches = ops.launch_counts()
+    micro_launches = read_counts()[0]
 
     # One step on a batch holding a NaN: nothing may change.
     batch, t, w, _, _ = loop.next_step_inputs()
@@ -2185,10 +2384,10 @@ def phase_train(ckpt_dir, card):
         raise RuntimeError("the parameters did not change")
     if not ema_err <= 1e-6 * max(want_ema.abs().max().item(), 1e-30):
         raise RuntimeError(f"EMA leaf differs from e·r + p·(1 − r) by {ema_err}")
-    _check_launches(launches, routes, TRAIN_STEPS)
+    _check_launches(launches, routes, TRAIN_STEPS, TRAIN_PER_STEP)
     _check_no_host_sync("train (flagship)", back_to_back)
-    if micro_launches != {name: 2 * n for name, n in PER_FORWARD.items()}:
-        raise RuntimeError(f"microbatch launches {micro_launches} != twice {PER_FORWARD}")
+    if micro_launches != {name: 2 * n for name, n in TRAIN_PER_STEP.items()}:
+        raise RuntimeError(f"microbatch launches {micro_launches} != twice {TRAIN_PER_STEP}")
     if not math.isfinite(m2["weighted_loss"].item()) or m2["skipped_nonfinite"].item():
         raise RuntimeError("the microbatch step failed")
     if m_nan["skipped_nonfinite"].item() != 1.0 or not nan_unchanged:
@@ -2463,7 +2662,7 @@ def _bitwise_diffs(a, b):
     return [n for (n, x), (_, y) in zip(a, b) if not torch.equal(bits(x), bits(y))]
 
 
-def phase_train_graphs(label, cfg, B, K, card, per_forward=PER_FORWARD, route_counts=None,
+def phase_train_graphs(label, cfg, B, K, card, per_forward=TRAIN_PER_STEP, route_counts=None,
                        env=None):
     """Captured train steps (``TrainProgram``) against the eager
     ``train_step`` on ``cfg`` at (B, K), from two identical states and one
@@ -2750,7 +2949,7 @@ BATCH_KEYS = ("x0", "frame_indices", "obs_mask", "latent_mask")
 # the kernels: each block's forward runs again in the backward pass. The
 # policies of phase 7b a, those that recompute the kernels, and those whose
 # step is the plain one bit for bit (they keep F.group_norm).
-REMAT_PER_STEP = {name: 2 * n for name, n in PER_FORWARD.items()}
+REMAT_PER_STEP = {name: 2 * n for name, n in TRAIN_PER_STEP.items()}
 REMAT_ARMS = ("nothing", "gn_stats", "dots", "everything")
 REMAT_RECOMPUTES_KERNELS = ("nothing", "gn_stats")
 REMAT_BITWISE = ("nothing", "everything")
@@ -2775,6 +2974,7 @@ dist.init_process_group("gloo", init_method="tcp://localhost:%d" % job["port"], 
                         world_size=2, timeout=datetime.timedelta(seconds=300))
 from lfvdm_tpu_torch.config import create_diffusion, create_model_and_diffusion
 from lfvdm_tpu_torch.ops import attention as ops
+from lfvdm_tpu_torch.ops import groupnorm
 from lfvdm_tpu_torch.training.train_loop import (TrainLoop, init_train_state, make_optimizer,
                                                  train_step)
 inputs = {k: v.cuda() for k, v in torch.load(job["inputs"]).items()}
@@ -2793,7 +2993,9 @@ def step(state, rows):
     m = train_step(state, {k: inputs[k][rows] for k in keys}, inputs["t"][rows],
                    inputs["w"][rows], diffusion=diffusion, noise=inputs["noise"][rows])
     torch.cuda.synchronize()
-    return {"ms": (time.perf_counter() - t0) * 1e3, "launches": ops.launch_counts(),
+    return {"ms": (time.perf_counter() - t0) * 1e3,
+            "launches": dict(ops.launch_counts(),
+                             group_norm_silu=groupnorm.group_norm_silu.launches),
             "routes": {n: dict(getattr(ops, n).launches_by_route)
                        for n in ("spatial_attention", "skip_conv_stats")},
             "skipped": m["skipped_nonfinite"].item(), "loss": m["loss"].tolist()}
@@ -3010,7 +3212,7 @@ def _remat_rows(dtype, B, paths):
                     torch.cuda.synchronize()
                 busy = sum(device_kernels_ms(prof, 1).values())
         if dtype == "bfloat16":
-            per_step = REMAT_PER_STEP if arm in REMAT_RECOMPUTES_KERNELS else PER_FORWARD
+            per_step = REMAT_PER_STEP if arm in REMAT_RECOMPUTES_KERNELS else TRAIN_PER_STEP
             _check_launches(launches, routes, PARALLEL_STEPS, per_forward=per_step)
             paths[f"parallel_remat_{arm}" if arm else "parallel_no_remat"] = (launches, routes)
         rows[arm] = {"use_checkpoint": arm is not None, "policy": arm, "loss": loss.item(),
@@ -3108,7 +3310,7 @@ def _parallel_group_of_one(ckpt_root, card):
                 if metrics[-1]["skipped_nonfinite"].item():
                     raise RuntimeError(f"{kind}: a non-finite step")
             launches, routes = read_counts()
-            _check_launches(launches, routes, PARALLEL_STEPS)
+            _check_launches(launches, routes, PARALLEL_STEPS, TRAIN_PER_STEP)
             paths[f"parallel_{kind}"] = (launches, routes)
             states[kind] = _clone(eager.state.state_dict())
             row[kind] = {"wrapper": type(eager.model).__name__, "ms_per_step": ms[1:],
@@ -3196,7 +3398,7 @@ def _group_graphs(kind, eager, captured, eager_metrics, card):
             mem["after_capture"] = _mem()
         if is_replay:
             replay = read_counts()
-            _check_launches(*replay, 1)
+            _check_launches(*replay, 1, TRAIN_PER_STEP)
         diffs += [f"step {i}: {k}" for k in want if not torch.equal(got[k], want[k])]
         if i >= done - 1:
             diffs += [f"step {i}: {n}" for n in _bitwise_diffs(_state_tensors(captured.state),
@@ -3304,7 +3506,7 @@ def _parallel_two_ranks(ckpt_root, card):
             for r in results:
                 if r[kind]["skipped"]:
                     raise RuntimeError(f"rank {r['rank']} {kind}: a non-finite step")
-                _check_launches(r[kind]["launches"], r[kind]["routes"], 1)
+                _check_launches(r[kind]["launches"], r[kind]["routes"], 1, TRAIN_PER_STEP)
                 paths[f"parallel_two_ranks_{kind}_rank{r['rank']}"] = (r[kind]["launches"],
                                                                        r[kind]["routes"])
     finally:
@@ -3588,7 +3790,7 @@ def phase_latent_train(ckpt_root, vae, card):
     data = load_data("synthetic", batch_size=LATENT_B, T=LATENT_VIDEO_T, image_size=256)
     _latent_steps("vae_online", data, TimedEncode(VAECodec(vae=vae)), ckpt_root, card)
     replay = phase_train_graphs("latent", latent_config(), LATENT_B, LATENT_K, card,
-                                LATENT_PER_FORWARD, latent_route_counts(_sms()))
+                                LATENT_TRAIN_PER_STEP, latent_route_counts(_sms()))
     return counts, replay
 
 
@@ -3633,7 +3835,7 @@ def _latent_steps(kind, data, codec, ckpt_dir, card):
     emit(row)
     if not all(math.isfinite(x) for step in losses for x in step):
         raise RuntimeError(f"latent training ({kind}): non-finite loss {losses}")
-    _check_launches(launches, routes, steps, LATENT_PER_FORWARD, latent_route_counts(_sms()))
+    _check_launches(launches, routes, steps, LATENT_TRAIN_PER_STEP, latent_route_counts(_sms()))
     if back_to_back is not None:
         _check_no_host_sync(f"latent_train ({kind})", back_to_back)
     return launches, routes
@@ -3832,7 +4034,7 @@ def phase_latent_data(ckpt_root, card):
         with open(os.path.join(run_dir, "metrics.jsonl")) as f:
             losses = [json.loads(line)["loss"] for line in f]
         config = {k: loop.config[k] for k in latent_config()}
-        replays = [{name: p.delta.get((name, None), 0) for name in KERNEL_NAMES}
+        replays = [{name: p.delta.get((name, None), 0) for name in LATENT_TRAIN_PER_STEP}
                    for p in loop._programs.values()]
         stats_used = [loop.config["enc_stats_mean"], loop.config["enc_stats_std"]]
         loop.log_interval = 10**9  # no metric flush inside the timed steps
@@ -3851,9 +4053,9 @@ def phase_latent_data(ckpt_root, card):
             raise RuntimeError(f"the run's latent stats {stats_used} are not the written ones")
         if len(losses) != LATENT_DATA_STEPS or not all(math.isfinite(x) for x in losses):
             raise RuntimeError(f"latent data training losses {losses}")
-        if replays[0] != LATENT_PER_FORWARD:
-            raise RuntimeError(f"a replay launched {replays[0]}, not {LATENT_PER_FORWARD}")
-        _check_launches(launches, routes, LATENT_DATA_STEPS, LATENT_PER_FORWARD,
+        if replays[0] != LATENT_TRAIN_PER_STEP:
+            raise RuntimeError(f"a replay launched {replays[0]}, not {LATENT_TRAIN_PER_STEP}")
+        _check_launches(launches, routes, LATENT_DATA_STEPS, LATENT_TRAIN_PER_STEP,
                         latent_route_counts(_sms()))
         _check_no_host_sync("latent_data_train", back_to_back)
         del loop
@@ -4001,6 +4203,8 @@ def pil_available() -> bool:
 def _timed_batches(gen, n, warmup=2):
     """ms per float32 batch: ``np.asarray`` normalises the native loader's
     raw batches whole, as the other loaders do on their own."""
+    import numpy as np
+
     for _ in range(warmup):
         np.asarray(next(gen))
     t0 = time.perf_counter()
@@ -4099,7 +4303,7 @@ def phase_cli(ckpt_root, card):
         if not os.path.exists(os.path.join(run_dir, "config.json")) or files != [
                 "ema_0.9999.pt", "params.pt", "train_state.pt"]:
             raise RuntimeError(f"run directory {run_dir} holds {files}")
-        _check_launches(launches, routes, CLI_TRAIN_STEPS)
+        _check_launches(launches, routes, CLI_TRAIN_STEPS, TRAIN_PER_STEP)
 
         # The vis sampler on the trained loop (the 4-step run never reaches
         # its sample interval), with a 25-step schedule instead of the
@@ -4879,6 +5083,11 @@ def main() -> int:
     phase_unet(cfg, model)
     phase_profile(cfg, model)
     lap("unet_profile")
+    results.update(phase_group_norm(cfg, model))
+    latent_cfg, latent_unet, _ = latent_model("cuda")
+    results.update(phase_group_norm(latent_cfg, latent_unet, latent=True))
+    del latent_unet
+    lap("norms")
     sample_launches, sample_routes, _ = phase_sample(cfg, model, diffusion)
     lap("sample")
     reuse = phase_reuse(cfg, model, card)

@@ -9,6 +9,10 @@
   ``saved_group_stats()`` (a rematerialised block whose remat policy saves
   them, ``models/unet.py`` ``remat_policy``) it takes its (N, G) statistics
   from an op that returns them alone, so that the policy can keep them.
+  ``GroupNorm32.silu`` runs the norm, a scale-shift and SiLU: as one
+  ``group_norm_silu`` call (``ops/groupnorm.py``) with ``fused``, which the
+  U-Net asks for on the card where no gradient is taken, else as the module
+  then ``scale_shift_silu``.
 * Initialisation is torch's default (uniform ±1/√fan_in for weights and
   biases), drawn from an explicit ``torch.Generator`` by ``init_parameters``;
   "zero modules" start at zero. Construction itself draws nothing.
@@ -24,6 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.groupnorm import group_affine, group_norm_plain, group_norm_silu, scale_shift_silu
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -79,34 +85,27 @@ class GroupNorm32(nn.GroupNorm):
         each (N, C), taken where x's parts were produced. The group variance
         is then the unanchored E[x²] − E[x]² (lfvdm_tpu ``GroupNorm32``), and
         gradients flow through the sums."""
-        N, C = x.shape[:2]
         G = self.num_groups
-        if precomputed_sums is None:
-            if not getattr(_STATS, "saved", False):
-                y = F.group_norm(x.float(), G, self.weight, self.bias, self.eps)
-                return y.to(self.out_dtype or x.dtype)
+        if precomputed_sums is None and getattr(_STATS, "saved", False):
+            N = x.shape[0]
             g_var, g_mean = torch.var_mean(x.float().reshape(N, G, -1), dim=2, keepdim=True,
                                            correction=0)  # (N, G, 1) each
-            return self._affine(x, g_mean, g_var)
-        n_red = x[0, 0].numel() * (C // G)
-        s1, s2 = precomputed_sums
-        g_mean = s1.reshape(N, G, C // G).sum(-1, keepdim=True) / n_red  # (N, G, 1)
-        g_var = (s2.reshape(N, G, C // G).sum(-1, keepdim=True) / n_red
-                 - g_mean.square()).clamp(min=0.0)
-        return self._affine(x, g_mean, g_var)
+            return group_affine(x, G, self.weight, self.bias, self.eps, g_mean, g_var,
+                                self.out_dtype)
+        return group_norm_plain(x, G, self.weight, self.bias, self.eps, self.out_dtype,
+                                precomputed_sums)
 
-    def _affine(self, x, g_mean, g_var):
-        """x normalised by its (N, G, 1) group statistics and scaled: the
-        per-channel affine y = x·mul + add, broadcast from the groups."""
-        N, C = x.shape[:2]
-        G = self.num_groups
-        mul = torch.rsqrt(g_var + self.eps) * self.weight.reshape(G, C // G)
-        add = self.bias.reshape(G, C // G) - g_mean * mul
-        bshape = (N, C) + (1,) * (x.ndim - 2)
-        mul, add = mul.reshape(bshape), add.reshape(bshape)
-        # add + x·mul in f32 in one pass over x (x is promoted as it is read)
-        y = torch.addcmul(add, x, mul)
-        return y.to(self.out_dtype or x.dtype)
+    def silu(self, x: torch.Tensor, *, sums=None, scale=None, shift=None,
+             fused: bool = True) -> torch.Tensor:
+        """silu(this norm of x · (1 + scale) + shift). ``fused``: as one
+        ``group_norm_silu`` call (``ops/groupnorm.py``), the chain in one pass
+        on the card, for forwards that take no gradient; otherwise this
+        module's forward, then ``scale_shift_silu``."""
+        if fused:
+            return group_norm_silu(x, self.weight, self.bias, scale=scale, shift=shift,
+                                   sums=sums, groups=self.num_groups, eps=self.eps,
+                                   out_dtype=self.out_dtype)
+        return scale_shift_silu(self(x, precomputed_sums=sums), scale, shift)
 
 
 def channel_sums(x: torch.Tensor):

@@ -280,6 +280,20 @@ def _rematerialises(block: nn.Module) -> bool:
     return block.use_checkpoint and block.training and torch.is_grad_enabled()
 
 
+def _fuses_norms(impl: str, x, emb, module: nn.Module) -> bool:
+    """Whether ``module``'s GroupNorm, scale-shift and SiLU run as one
+    ``group_norm_silu`` call (``GroupNorm32.silu``): on a CUDA device, unless
+    ``impl="plain"``, where no gradient is taken through them (grad off, or
+    neither x, emb nor a parameter of ``module`` requires one). Elsewhere
+    (the CPU, a training step, a rematerialised block) the modules run."""
+    if impl == "plain" or x.device.type != "cuda":
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    return not (x.requires_grad or (emb is not None and emb.requires_grad)
+                or any(p.requires_grad for p in module.parameters()))
+
+
 class ResBlock(nn.Module):
     """Residual block with timestep-embedding conditioning."""
 
@@ -313,8 +327,10 @@ class ResBlock(nn.Module):
         ``parts``: the two halves (h, skip) of the concat x. With them the
         skip projection, the residual add and the output's channel sums run
         as one ``skip_conv_stats`` call, and ``out_stats`` holds those sums;
-        otherwise ``out_stats`` is None. ``impl="plain"`` asks that call for
-        its plain version."""
+        otherwise ``out_stats`` is None. Where no gradient is taken on the
+        card, each GroupNorm with what follows it up to the SiLU is one
+        ``group_norm_silu`` call (``_fuses_norms``). ``impl="plain"`` asks
+        for the plain versions of both."""
         if _rematerialises(self):
             drop = self.out_layers[2]
             return _remat(self._forward, drop.draws, drop.generator, self.remat_streams, x, emb,
@@ -322,15 +338,16 @@ class ResBlock(nn.Module):
         return self._forward(x, emb, in_stats, parts, impl)
 
     def _forward(self, x, emb, in_stats, parts, impl):
-        h = self.in_layers[0](x, precomputed_sums=in_stats)
-        h = self.in_layers[2](self.in_layers[1](h))
+        in_norm, out_norm = self.in_layers[0], self.out_layers[0]
+        fused = not self.out_layers[2].draws and _fuses_norms(impl, x, emb, self)
+        h = self.in_layers[2](in_norm.silu(x, sums=in_stats, fused=fused))
         emb_out = self.emb_layers(emb)[:, :, None, None]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
-            h = self.out_layers[0](h) * (1 + scale) + shift
-            h = self.out_layers[1:](h)
+            h = out_norm.silu(h, scale=scale, shift=shift, fused=fused)
         else:
-            h = self.out_layers(h + emb_out)
+            h = out_norm.silu(h + emb_out, fused=fused)
+        h = self.out_layers[3](self.out_layers[2](h))
         if parts is None:
             return self.skip_connection(x) + h, None
         conv = self.skip_connection
@@ -419,7 +436,7 @@ class _Blocks(nn.ModuleList):
         for layer in self:
             if isinstance(layer, ResBlock):
                 if skip is None:
-                    h, stats = layer(h, emb)
+                    h, stats = layer(h, emb, impl=attn_args[1]["impl"])
                 else:
                     x = torch.cat([h, skip], dim=1)
                     h, stats = layer(x, emb, in_stats=in_stats,
@@ -577,7 +594,8 @@ class UNetVideoModel(nn.Module):
                                      fused=self.fused_skip_conv)
             attns += a
 
-        out = self.out(h).reshape(B, T, self.out_channels, Hs, Ws)
+        out = self.out[2](self.out[0].silu(h, fused=_fuses_norms(impl, h, None, self.out)))
+        out = out.reshape(B, T, self.out_channels, Hs, Ws)
         weights = None
         if return_attn_weights:
             weights = {"temporal": [a["temporal"] for a in attns],

@@ -9,4 +9,5 @@ from .attention import (  # noqa: F401
     temporal_rpe_attention,
     temporal_rpe_attention_plain,
 )
+from .groupnorm import group_norm_silu, group_norm_silu_plain  # noqa: F401
 from .skipconv import skip_conv_stats, skip_conv_stats_plain  # noqa: F401

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Optional, Sequence
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 KERNELS = ("temporal_rpe_attention", "spatial_attention", "skip_conv_stats",
-           "fused_adamw_ema")
+           "fused_adamw_ema", "group_norm_silu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -67,20 +67,36 @@ def test_kernels_line_has_every_key():
         results[("latent", "skip_conv_stats") + shp + ("bfloat16",)] = _row(
             "skip_conv_stats", shp[0], route="bulk", ms=0.003)
     _adamw_rows(results)
+    for path, per in (("flagship", chip_smoke.PER_FORWARD),
+                      ("latent", chip_smoke.LATENT_PER_FORWARD)):
+        results[(chip_smoke.GN_NAME, path)] = _row(
+            chip_smoke.GN_NAME, None, calls_per_forward=per[chip_smoke.GN_NAME],
+            shape=[2, 20, 3, 128, 128], bound_by="bytes", bound_with_stats_read_ms=0.006,
+            limit_violations=0, library="F.group_norm + F.silu")
     launches = {n: 7 * 6 for n in chip_smoke.KERNEL_NAMES}
+    train = dict(launches, **{chip_smoke.GN_NAME: 0})
+    sample = dict(launches, **{chip_smoke.GN_NAME: 35 * 6})
     routes = {"spatial_attention": {"mma": 42, "fma": 0},
               "skip_conv_stats": {"generic": 0, "bulk": 42}}
     latent = {n: k * 450 for n, k in chip_smoke.LATENT_PER_FORWARD.items()}
     latent_routes = {"spatial_attention": {"mma": 7 * 450, "fma": 0},
                      "skip_conv_stats": {"generic": 0, "bulk": 8 * 450}}
     line = chip_smoke.kernels_line(
-        results, {"train": launches, "sample_video": launches, "latent_sample": latent},
+        results, {"train": train, "sample_video": sample, "latent_sample": latent},
         {"train": routes, "sample_video": routes, "latent_sample": latent_routes})
     json.dumps(line)
     entries = {e["name"]: e for e in line["kernels"]}
-    assert set(entries) == set(chip_smoke.KERNEL_NAMES) | {chip_smoke.ADAMW_NAME}
+    assert set(entries) == set(chip_smoke.KERNEL_NAMES) | {chip_smoke.ADAMW_NAME,
+                                                           chip_smoke.GN_NAME}
     for e in entries.values():
         assert CONTRACT_KEYS <= set(e) and e["route"] == "cuda"
+    # the fused norm kernel: phase 4b's flagship numbers, the latent's beside
+    # them; its launches are the sampling path's, the other paths' beside them
+    gn = entries[chip_smoke.GN_NAME]
+    assert gn["launches"] == 35 * 6 and gn["source"] == chip_smoke.GN_SOURCE
+    assert gn["launches_by_path"] == {"train": 0, "sample_video": 210, "latent_sample": 29 * 450}
+    assert gn["limit_violations"] == 0
+    assert gn["latent"]["ms"] == 0.02 and "29 calls" in gn["latent"]["unit"]
     # the optimizer kernel: its launches are the replays of phase 6b
     adamw = entries[chip_smoke.ADAMW_NAME]
     assert adamw["launches"] == sum(chip_smoke.FUSED_LAUNCHES.values())
@@ -133,9 +149,10 @@ def test_latent_launch_check_takes_the_rules_routes():
 
 def test_latent_shapes_are_the_latent_unet_launches():
     """The latent shape tables match what one latent U-Net forward launches,
-    logged on the CPU (B=1, K=5, f32)."""
+    logged on the CPU (B=1, K=5, f32), its 29 norm sites included."""
     from lfvdm_tpu_torch.config import create_model_and_diffusion, latent_config
     from lfvdm_tpu_torch.models import rpe, unet
+    from lfvdm_tpu_torch.models.nn import GroupNorm32
 
     model, _ = create_model_and_diffusion(dict(latent_config(), compute_dtype="float32"),
                                           device="cpu")
@@ -153,6 +170,13 @@ def test_latent_shapes_are_the_latent_unet_launches():
     mp = pytest.MonkeyPatch()
     for name, fn in calls.items():
         mp.setattr(unet if name == "skip_conv_stats" else rpe, name, spy(name, fn))
+    norm_silu = GroupNorm32.silu
+
+    def norm_spy(self, h, **kw):  # every norm site, whichever route the CPU takes
+        seen.append((chip_smoke.GN_NAME, tuple(h.shape), ()))
+        return norm_silu(self, h, **kw)
+
+    mp.setattr(GroupNorm32, "silu", norm_spy)
     try:
         B, K = chip_smoke.LATENT_B, chip_smoke.LATENT_K
         x = torch.randn(B, K, 4, 32, 32)
@@ -172,7 +196,21 @@ def test_latent_shapes_are_the_latent_unet_launches():
     assert temporal == sorted((b, h, t, f, d) for b, t, h, d, f in want)
     skip = sorted((s[1][1], s[2][1], s[1][2]) for s in seen if s[0] == "skip_conv_stats")
     assert skip == sorted((c1, c2, S) for _, c1, c2, _, S in chip_smoke.LATENT_SKIP_SHAPES)
+    norms = sum(s[0] == chip_smoke.GN_NAME for s in seen)
+    assert norms == chip_smoke.LATENT_PER_FORWARD[chip_smoke.GN_NAME]
     assert len(seen) == sum(chip_smoke.LATENT_PER_FORWARD.values())
+
+
+def test_timed_batches_reads_each_batch_whole():
+    seen = []
+
+    def batches():
+        while True:
+            seen.append(1)
+            yield np.zeros((2, 3), np.uint8)
+
+    assert chip_smoke._timed_batches(batches(), 4) >= 0.0
+    assert len(seen) == 2 + 4
 
 
 def test_main_refuses_without_a_card(capsys):
@@ -320,7 +358,8 @@ def test_reuse_counts_are_the_flagship_structure():
     """The reuse and heatmap launch counts that phase 5b requires are what a
     U-Net of the flagship's structure (128 px, one res block, attention at ds
     8 and 16; narrow channels here) derives, and a window's mixed count is
-    full calls x 7 + 7 + 10 plus reuse calls x 4 + 4 + 10."""
+    full calls x 7 + 7 + 10 plus reuse calls x 4 + 4 + 10, and the fused
+    norm's 35 a full call and 21 a reuse call."""
     from lfvdm_tpu_torch.config import create_model_and_diffusion, flagship_config
     from lfvdm_tpu_torch.models.unet import attention_blocks, fused_skip_blocks
 
@@ -331,7 +370,8 @@ def test_reuse_counts_are_the_flagship_structure():
                                                       chip_smoke.ATTN_PER_FORWARD)
     assert chip_smoke.mixed_counts(17, 33) == {"temporal_rpe_attention": 7 * 17 + 4 * 33,
                                                "spatial_attention": 7 * 17 + 4 * 33,
-                                               "skip_conv_stats": 10 * 50}
+                                               "skip_conv_stats": 10 * 50,
+                                               chip_smoke.GN_NAME: 35 * 17 + 21 * 33}
     counts = chip_smoke.mixed_counts(17, 33)
     good = {"spatial_attention": {"mma": 251, "fma": 0},
             "skip_conv_stats": {"generic": 0, "bulk": 500}}

@@ -323,11 +323,13 @@ def _op_inputs(name, seed=0):
         B, H, T, F, D = 1, 2, 3, 4, 5
         return (r(B, H, T, F, D), r(B, H, T, F, D), r(B, H, T, F, D), r(B, H, T, T, F),
                 r(B, H, T, T, F), r(B, H, T, F, T), torch.tensor([[1.0, 1.0, 0.0]]))
+    if name == "group_norm_silu":
+        return (r(2, 6, 3, 4), r(6), r(6), r(2, 6), r(2, 6), None, None, 3, 1e-5, None)
     return (r(2, 3, 4, 4), r(2, 5, 4, 4), r(6, 8), r(6), r(2, 6, 4, 4))
 
 
 @pytest.mark.parametrize("name", ["spatial_attention", "temporal_rpe_attention",
-                                  "skip_conv_stats"])
+                                  "skip_conv_stats", "group_norm_silu"])
 def test_operator_passes_opcheck(name):
     """Schema, fake implementation and autograd registration."""
     op = getattr(torch.ops.lfvdm, name).default
